@@ -6,19 +6,26 @@
 Phases, each of which exits non-zero on failure:
   1. setup: the card's name and power limit, torch and CUDA versions, TF32
      off for matmuls and cuDNN;
-  2. build both CUDA kernels from src/repro_torch/csrc (one nvcc each, all
-     started together) into build/torch_kernels/;
-  3. each kernel against its plain PyTorch version at the main path's
+  2. build the three CUDA kernels from src/repro_torch/csrc (one nvcc each,
+     all started together) into build/torch_kernels/;
+  3. each kernel against its plain PyTorch version at the main paths'
      shapes: max |err| beside the tolerance, and kernel, plain, library
-     (where one call computes the same function) and bound times;
-  4. the main path: full-width, full-depth TinyLlama (random weights from
-     the seed) -- prefill of 8 x 512 tokens through the flash kernel, dense
+     (where one call computes the same function) and bound times; then
+     reduced TinyLlama, RWKV6 and Zamba2 models on the card (the kernels)
+     held against the CPU path (their plain versions) in fp32;
+  4. the TinyLlama path: full-width TinyLlama (random weights from the
+     seed) -- prefill of 8 x 512 tokens through the flash kernel, dense
      decode, then paged decode through the paged kernel from a pool laid
-     out under a shuffled block table, held against the dense decode; a
-     reduced model on the card is first held against the CPU path;
+     out under a shuffled block table, held against the dense decode;
   5. BatchScheduler serving 16 requests over 4 slots at full width;
   6. PagedKVEngine: real K pages of the card's pool spill to the DDS page
-     store (host path) and come back bit-exact through the DPU offload path.
+     store (host path) and come back bit-exact through the DPU offload path;
+  7. rwkv6_7b at full width and depth: prefill of 8 x 512 tokens (one
+     gla_scan launch per layer), 8 decode steps through the recurrence,
+     each held against the last logits of a prefill of the longer prompt,
+     then BatchScheduler serving;
+  8. zamba2_1p2b at full width and depth: the same, with the shared
+     attention block through the flash kernel once per group.
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
 """
@@ -46,6 +53,20 @@ TOL_FP32 = 1e-4                 # reduced model on the card vs the CPU path
 # paths round differently and the difference grows through 22 layers; an
 # H100 measured 0.072 at seed 0, and this allows 3.5 times that.
 TOL_PAGED_LOGITS = 0.25
+# GLA scan kernel against its plain version, as the JAX package's GLA
+# tests compare (tests/test_kernels.py): atol = rtol = 4 x {fp32 2e-5,
+# bf16 2e-2} on the output (which reaches O(100) at S 512, where one bf16
+# step is 0.5, so an absolute bound alone would not do) and 1e-3 on the
+# final fp32 state.
+TOL_GLA = {torch.float32: 4 * 2e-5, torch.bfloat16: 4 * 2e-2}
+TOL_GLA_STATE = 1e-3
+# prefill(S) + n decode steps against the last logits of prefill(S + n), in
+# bf16 at full depth: the chunked kernel and the recurrence round
+# differently, as do the matmuls of one token and of a whole prompt.  An
+# H100 measured at most 0.2578 (rwkv6_7b, 32 layers) and 0.0469
+# (zamba2_1p2b) over two draws of seed-0 weights; these allow 3.5 times
+# that, as TOL_PAGED_LOGITS does.
+TOL_CONT_LOGITS = {"rwkv6_7b": 0.9, "zamba2_1p2b": 0.17}
 
 
 def log(msg: str) -> None:
@@ -55,6 +76,8 @@ def log(msg: str) -> None:
 def tree_to(tree, device, dtype=None):
     if isinstance(tree, dict):
         return {k: tree_to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_to(v, device, dtype) for v in tree)
     if isinstance(tree, torch.Tensor):
         t = tree.to(device)
         return t.to(dtype) if dtype is not None and t.is_floating_point() else t
@@ -119,11 +142,14 @@ def check_flash(gen, timer) -> dict:
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ops import flash_attention_xla
 
-    # B, Sq, Sk, Hq, Hkv, D, causal, window; the first is the prefill shape.
+    # B, Sq, Sk, Hq, Hkv, D, causal, window; the first is TinyLlama's prefill
+    # shape (G = 8 query heads per K/V head), the last Zamba2's shared
+    # attention block (G = 1, which the launcher tiles differently).
     cases = [(8, 512, 512, 32, 4, 64, True, None),
              (8, 500, 500, 32, 4, 64, True, None),
              (8, 512, 512, 32, 4, 64, True, 128),
-             (8, 128, 512, 32, 4, 64, False, None)]
+             (8, 128, 512, 32, 4, 64, False, None),
+             (8, 512, 512, 32, 32, 64, True, None)]
     rows = []
     for B, Sq, Sk, Hq, Hkv, D, causal, window in cases:
         q = torch.randn(B, Sq, Hq, D, generator=gen, device="cuda").bfloat16()
@@ -156,6 +182,42 @@ def check_flash(gen, timer) -> dict:
     if not all(r["ok"] for r in rows):
         raise SystemExit("flash_attention kernel disagrees with its plain version")
     return rows[0]
+
+
+def timed_prefill(api, params, tokens, S, cache_len, kernels, want):
+    """Warm up (the first call of each matmul shape pays one-time library
+    set-up that a serving process pays once), set the ``kernels``' launch
+    counts to 0, then time one prefill of ``tokens[:, :S]`` and hold the
+    counts to ``want`` and the logits to their shape.  Returns (logits,
+    cache, seconds, counts)."""
+    cfg, dev = api.cfg, api.device
+    _, warm = api.prefill(params, {"tokens": tokens[:, :S]}, cache_len=cache_len)
+    api.decode_step(params, warm, S, tokens[:, S:S + 1])
+    del warm
+    for fn in kernels.values():
+        fn.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = api.prefill(params, {"tokens": tokens[:, :S]},
+                                cache_len=cache_len)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    if counts != want:
+        raise SystemExit(f"{cfg.name} prefill launched {counts}, want {want}")
+    if (tuple(logits.shape) != (tokens.shape[0], cfg.padded_vocab)
+            or not torch.isfinite(logits.float()).all()):
+        raise SystemExit(f"prefill logits {tuple(logits.shape)} not finite")
+    return logits, cache, seconds, counts
+
+
+def near_tie(ref, got) -> tuple[float, int, int, float]:
+    """(max |err|, greedy tokens equal, tokens, largest gap): a greedy
+    token may differ only where the reference logits of the two candidates
+    are a near-tie, so the gap is the reference's between them."""
+    tr, tg = ref.argmax(-1, keepdim=True), got.argmax(-1, keepdim=True)
+    gap = (ref.gather(-1, tr) - ref.gather(-1, tg)).abs().max().item()
+    return max_err(ref, got), int((tr == tg).sum().item()), tr.numel(), gap
 
 
 def check_paged(gen, timer) -> dict:
@@ -192,6 +254,71 @@ def check_paged(gen, timer) -> dict:
     if not (torch.isfinite(out.float()).all() and err <= TOL_BF16):
         raise SystemExit("paged_attention kernel disagrees with its plain version")
     return row
+
+
+def gla_work(q, v, w, chunk: int) -> tuple[int, int]:
+    """(bytes, flops) one gla_scan call must move and do: q, k, v, o and
+    the final state once each, w as its strides lay it out (a stride-0 K
+    axis is read once per position), and the chunked form's products over
+    the causal pairs of each chunk plus the state's two K x V products."""
+    B, H, S, K = q.shape
+    V = v.shape[-1]
+    C = min(chunk, S)
+    w_elems = B * H * S * (K if w.stride(-1) else 1)
+    nbytes = (q.element_size() * (2 * q.numel() + 2 * v.numel())
+              + 4 * w_elems + 4 * B * H * K * V)
+    flops = 0
+    for c0 in range(0, S, C):
+        n = min(C, S - c0)
+        flops += 2 * (n * (n + 1) // 2) * (K + V) + 4 * n * K * V
+    return nbytes, B * H * flops
+
+
+def check_gla(gen, timer) -> dict:
+    from repro_torch.kernels.ssm_scan.kernel import gla_scan_cuda
+    from repro_torch.kernels.ssm_scan.ops import gla_scan_xla
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # B, H, S, K, V, dtype, decay; the first is RWKV6's prefill shape.
+    cases = [(8, 64, 512, 64, 64, bf16, "rwkv6"),
+             (8, 64, 500, 64, 64, bf16, "rwkv6"),
+             (8, 64, 512, 64, 64, bf16, "mamba2"),   # one decay per head
+             (8, 64, 512, 64, 64, fp32, "rwkv6"),
+             (8, 64, 512, 64, 64, fp32, "strong")]   # w = -2.5
+    rows = []
+    for B, H, S, K, V, dtype, decay in cases:
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+        q, k = (randn(B, H, S, K) * 0.5).to(dtype), (randn(B, H, S, K) * 0.5).to(dtype)
+        v = randn(B, H, S, V).to(dtype)
+        if decay == "mamba2":
+            w = (-0.05 * torch.exp(randn(B, H, S, 1))).expand(B, H, S, K)
+        elif decay == "strong":
+            w = torch.full((B, H, S, K), -2.5, device="cuda")
+        else:
+            w = -0.05 * torch.exp(randn(B, H, S, K))
+        o, st = gla_scan_cuda(q, k, v, w)
+        torch.cuda.synchronize()
+        ro, rs = gla_scan_xla(q, k, v, w)
+        tol = TOL_GLA[dtype]
+        ok = (bool(torch.isfinite(o.float()).all() and torch.isfinite(st).all())
+              and torch.allclose(o.float(), ro.float(), atol=tol, rtol=tol)
+              and torch.allclose(st, rs, atol=TOL_GLA_STATE, rtol=TOL_GLA_STATE))
+        err, s_err = max_err(o, ro), max_err(st, rs)
+        bnd, by = bound_ms(*gla_work(q, v, w, 128))
+        row = dict(case=(B, H, S, K, V, str(dtype)[6:], decay), err=err, ok=ok,
+                   ms=timer.ms(lambda: gla_scan_cuda(q, k, v, w)),
+                   plain_ms=timer.ms(lambda: gla_scan_xla(q, k, v, w), iters=5),
+                   bound_ms=bnd, bound_by=by, library_ms=None)
+        log(f"gla_scan {row['case']}: max|err| o {err:.3e} (atol=rtol {tol:g}, "
+            f"largest |o| {ro.float().abs().max().item():.1f}) state "
+            f"{s_err:.3e} ({TOL_GLA_STATE:g}); kernel {row['ms']:.4f} ms plain "
+            f"{row['plain_ms']:.4f} ms bound {bnd:.4f} ms ({by}); no single "
+            "PyTorch call computes a gated linear-attention scan")
+        rows.append(row)
+    if not all(r["ok"] for r in rows):
+        raise SystemExit("gla_scan kernel disagrees with its plain version")
+    return rows[0]
 
 
 # ---------------------------------------------------------------------------
@@ -245,6 +372,34 @@ def check_reduced_against_cpu(seed: int) -> None:
         raise SystemExit("reduced model on the card disagrees with the CPU path")
 
 
+def check_reduced_ssm_against_cpu(arch: str, seed: int) -> None:
+    """A reduced ``arch`` (rwkv6_7b: 4 layers; zamba2_1p2b: 5 Mamba2 layers
+    and a shared attention block every 2) in fp32: the card (gla_scan and
+    flash kernels) against the CPU path (their plain versions) on the same
+    weights and tokens, prefill and 4 decode steps."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.registry import build_model
+
+    cfg = reduced_config(get_config(arch))
+    params, _ = build_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
+    tok = torch.randint(0, cfg.vocab_size, (2, 20),
+                        generator=torch.Generator().manual_seed(seed))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        api, p, t = build_model(cfg, dev), tree_to(params, dev, torch.float32), tok.to(dev)
+        logits, state = api.prefill(p, {"tokens": t[:, :16]}, cache_len=20)
+        seq = [logits]
+        for i in range(16, 20):
+            logits, state = api.decode_step(p, state, i, t[:, i:i + 1])
+            seq.append(logits)
+        outs[dev] = [x.float().cpu() for x in seq]
+    worst = max(max_err(a, b) for a, b in zip(outs["cpu"], outs["cuda"]))
+    log(f"reduced {arch}, card vs CPU path (fp32, prefill + 4 decode steps): "
+        f"max|err| {worst:.3e} (tol {TOL_FP32})")
+    if worst > TOL_FP32:
+        raise SystemExit(f"reduced {arch} on the card disagrees with the CPU path")
+
+
 def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
               cache_len=1024, steps=8, page=128) -> dict:
     from repro_torch.models import transformer as TF
@@ -253,25 +408,10 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
     tokens = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=gen,
                            device=dev)
     with torch.inference_mode():
-        # Warm-up: the first call of each matmul shape pays one-time library
-        # set-up that a serving process pays once.
-        _, warm = api.prefill(params, {"tokens": tokens[:, :S]},
-                              cache_len=cache_len)
-        api.decode_step(params, warm, S, tokens[:, S:S + 1])
-        del warm
-        flash_cuda.launches = paged_cuda.launches = 0
-        sync(dev)
-        t0 = time.perf_counter()
-        logits, cache = api.prefill(params, {"tokens": tokens[:, :S]},
-                                    cache_len=cache_len)
-        sync(dev)
-        prefill_s = time.perf_counter() - t0
-        if flash_cuda.launches != cfg.num_layers or paged_cuda.launches:
-            raise SystemExit(f"prefill launched flash {flash_cuda.launches} and "
-                             f"paged {paged_cuda.launches} times")
-        if (tuple(logits.shape) != (B, cfg.padded_vocab)
-                or not torch.isfinite(logits.float()).all()):
-            raise SystemExit(f"prefill logits {tuple(logits.shape)} not finite")
+        _, cache, prefill_s, _ = timed_prefill(
+            api, params, tokens, S, cache_len,
+            {"flash_attention": flash_cuda, "paged_attention": paged_cuda},
+            {"flash_attention": cfg.num_layers, "paged_attention": 0})
         paged = TF.lm_init_paged_cache(cfg, B, cache_len, page=page,
                                        device=dev)
         perm = torch.randperm(B * cache_len // page, generator=gen, device=dev)
@@ -297,21 +437,16 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
     if counts != {"flash_attention": cfg.num_layers,
                   "paged_attention": cfg.num_layers * steps}:
         raise SystemExit(f"main path launches {counts}")
-    d, p = torch.stack(dense_logits), torch.stack(paged_logits)
-    err = max_err(d, p)
-    # A greedy token may differ only where the dense logits of the two
-    # candidates are a near-tie, within the logits tolerance.
-    td, tp = d.argmax(-1, keepdim=True), p.argmax(-1, keepdim=True)
-    gap = (d.gather(-1, td) - d.gather(-1, tp)).abs()
-    same = int((td == tp).sum().item())
+    p = torch.stack(paged_logits)
+    err, same, n_tok, gap = near_tie(torch.stack(dense_logits), p)
     log(f"main path {cfg.name} L{cfg.num_layers} d{cfg.d_model}: prefill "
         f"{B}x{S} {prefill_s * 1e3:.3f} ms, dense decode {dense_s * 1e3:.3f} "
         f"ms/step, paged decode {paged_s * 1e3:.3f} ms/step, launches {counts}")
     log(f"paged vs dense decode logits over {steps} steps: max|err| {err:.4f} "
-        f"(tol {TOL_PAGED_LOGITS}); greedy tokens equal {same}/{td.numel()}, "
-        f"largest dense-logit gap where they differ {gap.max().item():.4f}")
+        f"(tol {TOL_PAGED_LOGITS}); greedy tokens equal {same}/{n_tok}, "
+        f"largest dense-logit gap where they differ {gap:.4f}")
     if not (torch.isfinite(p).all() and err <= TOL_PAGED_LOGITS
-            and gap.max().item() <= TOL_PAGED_LOGITS):
+            and gap <= TOL_PAGED_LOGITS):
         raise SystemExit("paged decode disagrees with dense decode")
     if dev.type == "cuda":
         with torch.inference_mode():
@@ -324,6 +459,56 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
                         params, cfg, paged, t, tokens[:, t:t + 1]))):
                 profile_steps(label, step, S + steps - 2, 2)
     return {"counts": counts, "paged": paged}
+
+
+def ssm_path(api, params, gen, gla_cuda, flash_cuda, B=8, S=512,
+             cache_len=1024, steps=8) -> dict:
+    """Prefill B x S through the kernels, then ``steps`` decode steps, each
+    held against the last logits of a prefill of the prompt it has seen
+    (prefill(S) + n steps == prefill(S + n)): the kernel's final state
+    carried on by the recurrence."""
+    cfg, dev = api.cfg, api.device
+    n_groups = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+    want = {"gla_scan": cfg.num_layers, "flash_attention": n_groups}
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=gen,
+                           device=dev)
+
+    def prefill(n):
+        return api.prefill(params, {"tokens": tokens[:, :n]}, cache_len=cache_len)
+
+    with torch.inference_mode():
+        _, state, prefill_s, counts = timed_prefill(
+            api, params, tokens, S, cache_len,
+            {"gla_scan": gla_cuda, "flash_attention": flash_cuda}, want)
+        decoded = []
+        sync(dev)
+        t0 = time.perf_counter()
+        for t in range(S, S + steps):
+            lg, state = api.decode_step(params, state, t, tokens[:, t:t + 1])
+            decoded.append(lg.float())
+        sync(dev)
+        decode_s = (time.perf_counter() - t0) / steps
+        if gla_cuda.launches != want["gla_scan"]:
+            raise SystemExit("decode launched the gla_scan kernel")
+        full = [prefill(S + n)[0].float() for n in range(1, steps + 1)]
+    d = torch.stack(decoded)
+    err, same, n_tok, gap = near_tie(torch.stack(full), d)
+    tol = TOL_CONT_LOGITS[cfg.name]
+    log(f"{cfg.name} L{cfg.num_layers} d{cfg.d_model}: prefill {B}x{S} "
+        f"{prefill_s * 1e3:.3f} ms, decode {decode_s * 1e3:.3f} ms/step, "
+        f"prefill launches {counts}")
+    log(f"{cfg.name} prefill({S}) + n decode steps vs prefill({S}+n), n = 1.."
+        f"{steps}: max|err| {err:.4f} (tol {tol}); greedy tokens equal "
+        f"{same}/{n_tok}, largest prefill-logit gap where they differ "
+        f"{gap:.4f}")
+    if not (torch.isfinite(d).all() and err <= tol and gap <= tol):
+        raise SystemExit(f"{cfg.name} decode does not continue its prefill")
+    if dev.type == "cuda":
+        with torch.inference_mode():
+            profile_steps(f"{cfg.name} prefill", lambda t: prefill(S), 0, 2)
+            profile_steps(f"{cfg.name} decode", lambda t: api.decode_step(
+                params, state, t, tokens[:, t:t + 1]), S + steps - 2, 2)
+    return counts
 
 
 def profile_steps(label: str, step, t0: int, n: int) -> None:
@@ -383,7 +568,7 @@ def serve_batch(api, params, name: str, cache_len: int = 256) -> None:
         raise SystemExit(f"BatchScheduler completed {done}/{n_req} requests")
     log(f"BatchScheduler: {n_req} requests x {max_new} tokens over {slots} "
         f"slots in {steps} steps, {n_req * max_new / dt:.1f} tok/s "
-        f"({dt * 1e3 / steps:.3f} ms/step) on {name}")
+        f"({dt * 1e3 / steps:.3f} ms/step), {api.cfg.name} on {name}")
 
 
 def kv_paging(paged: dict, blocks: list[tuple[int, int]], hbm_blocks: int) -> dict:
@@ -435,6 +620,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
+    from repro_torch.kernels.ssm_scan.kernel import gla_scan_cuda
     from repro_torch.models.registry import build_model
 
     t_start = time.perf_counter()
@@ -454,7 +640,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    report = _build.build(["flash_attention", "paged_attention"])
+    report = _build.build(["flash_attention", "paged_attention", "gla_scan"])
     log(f"build: {time.perf_counter() - t0:.1f} s wall into {_build.BUILD_DIR} "
         + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in report.items()))
     for k, v in report.items():
@@ -467,8 +653,11 @@ def main() -> int:
     timer = Timer()
     flash = check_flash(gen, timer)
     paged_row = check_paged(gen, timer)
+    gla_row = check_gla(gen, timer)
     del timer
     check_reduced_against_cpu(args.seed)
+    for arch in ("rwkv6_7b", "zamba2_1p2b"):
+        check_reduced_ssm_against_cpu(arch, args.seed)
 
     # 4. main path at full width
     cfg = get_config("tinyllama_1p1b")
@@ -482,24 +671,46 @@ def main() -> int:
     serve_batch(api, params, f"{name} ({card})")
 
     # 6. DDS KV paging of real pool pages
+    tiny_counts = main["counts"]
     pool_pages = main["paged"]["block_table"][0].tolist()   # sequence 0
     kv = kv_paging(main["paged"], [(l, p) for l in range(3) for p in pool_pages],
                    hbm_blocks=8)
     log(f"kv paging: {kv['spills']} K pages of {kv['page_bytes']} bytes spilled "
         f"to the page store, {kv['fetches']} fetched back bit-exact, "
         f"{kv['offloaded']} offloaded reads")
+    del api, params, main
+    torch.cuda.empty_cache()
+
+    # 7-8. the gated-linear-attention family at full width and depth
+    counts = {}
+    for arch in ("rwkv6_7b", "zamba2_1p2b"):
+        torch.cuda.reset_peak_memory_stats()
+        api = build_model(get_config(arch))
+        params, _ = api.init(gen)
+        init_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        counts[arch] = ssm_path(api, params, gen, gla_scan_cuda,
+                                flash_attention_cuda)
+        log(f"{arch}: peak device memory {init_peak:.3f} GiB during init, "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB during "
+            "prefill and decode")
+        serve_batch(api, params, f"{name} ({card})")
+        del api, params
+        torch.cuda.empty_cache()
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     entries = []
-    for kname, row, counter, line in (
-            ("flash_attention", flash, "flash_attention",
+    for kname, row, launches, line in (
+            ("flash_attention", flash, tiny_counts["flash_attention"],
              "src/repro/kernels/flash_attention/kernel.py:96"),
-            ("paged_attention", paged_row, "paged_attention",
-             "src/repro/kernels/paged_attention/kernel.py:84")):
+            ("paged_attention", paged_row, tiny_counts["paged_attention"],
+             "src/repro/kernels/paged_attention/kernel.py:84"),
+            ("gla_scan", gla_row, counts["rwkv6_7b"]["gla_scan"],
+             "src/repro/kernels/ssm_scan/kernel.py:76")):
         entries.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/csrc/{kname}.cu", "replaces": line,
-            "launches": main["counts"][counter], "max_abs_err": row["err"],
+            "launches": launches, "max_abs_err": row["err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 
 # ---------------------------------------------------------------------------
@@ -84,6 +85,18 @@ class ParamFactory:
         return child
 
 
+def init_generator(generator: torch.Generator | None, device):
+    """(generator, device) for a model init: the device resolved (``cuda``
+    raises without a card), a generator seeded with 0 made there if none is
+    given, and one on another device refused."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device}, device {dev}")
+    return generator, dev
+
+
 def _stack(trees: list) -> Any:
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -104,6 +117,16 @@ def stack_layer_params(init_fn, generator: torch.Generator, num: int):
         return ("layers",) + tuple(a)
 
     return params, prepend(inits[0][1])
+
+
+def layer_views(blocks: dict, n: int) -> list[dict]:
+    """Per-layer views of params stacked on a leading axis (what each step
+    of a ``lax.scan`` over them sees)."""
+    def take(t, i):
+        if isinstance(t, dict):
+            return {k: take(v, i) for k, v in t.items()}
+        return t[i]
+    return [take(blocks, i) for i in range(n)]
 
 
 def maybe_remat(fn, policy: str):

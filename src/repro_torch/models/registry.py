@@ -2,9 +2,9 @@
 
 Port of ``repro.models.registry``.  ``build_model(cfg, device)`` returns a
 :class:`ModelAPI` with the JAX package's members; ``input_specs`` returns
-meta-device tensors in place of ``ShapeDtypeStruct``.  Only the dense
-transformer family is ported; the others raise ``NotImplementedError``
-naming their ROADMAP.md item.
+meta-device tensors in place of ``ShapeDtypeStruct``.  The dense
+transformer, ssm (RWKV6) and hybrid (Zamba2) families are ported; the
+others raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -16,11 +16,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import hybrid as HY
+from repro_torch.models import ssm_stack as SS
 from repro_torch.models import transformer as TF
 
 _NOT_PORTED = {
-    "ssm": "Queue 1 item 8",
-    "hybrid": "Queue 1 item 8",
     "encdec": "Queue 1 item 9",
 }
 
@@ -65,6 +65,54 @@ def _meta(shape, dtype=torch.int32):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
+def _token_specs(shape: ShapeConfig) -> dict:
+    B, S = shape.global_batch, shape.seq_len
+    specs = {"tokens": _meta((B, S)), "labels": _meta((B, S))}
+    if shape.kind == "prefill":
+        specs.pop("labels")
+    return specs
+
+
+def _decode_specs(batch: int, cache) -> dict:
+    """One token, the ``kv_len`` scalar and the cache, as meta tensors."""
+    return {"token": _meta((batch, 1)), "kv_len": _meta(()), "cache": cache}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Family:
+    """What a family supplies; :func:`build_model` binds cfg and device."""
+    forward: Callable       # (params, cfg, batch) -> (logits, aux)
+    prefill: Callable       # (params, cfg, batch, cache_len) -> (logits, cache)
+    decode_step: Callable   # (params, cfg, cache, kv_len, token) -> (logits, cache)
+    state: Callable         # (cfg, batch, cache_len, device) -> cache
+    init: Callable          # (cfg, generator, device) -> (params, axes)
+
+
+_DENSE = _Family(
+    lambda p, cfg, b: TF.lm_forward(p, cfg, b["tokens"], embeds=b.get("embeds")),
+    lambda p, cfg, b, n: TF.lm_prefill(p, cfg, b["tokens"], cache_len=n,
+                                       embeds=b.get("embeds")),
+    TF.lm_decode_step,
+    lambda cfg, B, n, device: TF.lm_init_cache(cfg, B, n, device=device),
+    TF.init_lm)
+
+_FAMILIES = {
+    "dense": _DENSE, "moe": _DENSE, "vlm": _DENSE,
+    "ssm": _Family(   # RWKV6: O(1) state, so no cache_len
+        lambda p, cfg, b: SS.rwkv_forward(p, cfg, b["tokens"]),
+        lambda p, cfg, b, n: SS.rwkv_prefill(p, cfg, b["tokens"]),
+        SS.rwkv_decode_step,
+        lambda cfg, B, n, device: SS.rwkv_init_state(cfg, B, device=device),
+        SS.init_rwkv_lm),
+    "hybrid": _Family(
+        lambda p, cfg, b: HY.hybrid_forward(p, cfg, b["tokens"]),
+        lambda p, cfg, b, n: HY.hybrid_prefill(p, cfg, b["tokens"], cache_len=n),
+        HY.hybrid_decode_step,
+        lambda cfg, B, n, device: HY.hybrid_state(cfg, B, n, device=device),
+        HY.init_hybrid_lm),
+}
+
+
 def build_model(cfg: ModelConfig,
                 device: str | torch.device = "cuda") -> ModelAPI:
     fam = cfg.family
@@ -72,42 +120,34 @@ def build_model(cfg: ModelConfig,
         raise NotImplementedError(
             f"{cfg.name}: family {fam!r} is not ported yet "
             f"(ROADMAP.md, {_NOT_PORTED[fam]})")
-    if fam not in ("dense", "moe", "vlm"):
+    if fam not in _FAMILIES:
         raise ValueError(f"unknown family {fam}")
-    TF.check_supported(cfg)
-    return _build_transformer(cfg, resolve_device(device))
+    f = _FAMILIES[fam]
+    if f is _DENSE:
+        TF.check_supported(cfg)
+    device = resolve_device(device)
 
-
-def _build_transformer(cfg: ModelConfig, device: torch.device) -> ModelAPI:
     def forward(params, batch):
-        return TF.lm_forward(params, cfg, batch["tokens"],
-                             embeds=batch.get("embeds"))
+        return f.forward(params, cfg, batch)
 
     def init_cache(batch: int, cache_len: int):
-        return TF.lm_init_cache(cfg, batch, cache_len, device=device)
+        return f.state(cfg, batch, cache_len, device)
 
     def prefill(params, batch, cache_len=None):
-        return TF.lm_prefill(params, cfg, batch["tokens"],
-                             cache_len=cache_len, embeds=batch.get("embeds"))
+        return f.prefill(params, cfg, batch, cache_len)
 
     def decode_step(params, cache, kv_len, token):
-        return TF.lm_decode_step(params, cfg, cache, kv_len, token)
+        return f.decode_step(params, cfg, cache, kv_len, token)
 
     def input_specs(shape: ShapeConfig):
-        B, S = shape.global_batch, shape.seq_len
         if shape.kind in ("train", "prefill"):
-            specs = {"tokens": _meta((B, S)), "labels": _meta((B, S))}
-            if shape.kind == "prefill":
-                specs.pop("labels")
-            return specs
-        # decode: one token + full cache of seq_len entries
-        cshape = (cfg.num_layers, B, S + 1, cfg.num_kv_heads, cfg.hd)
-        return {"token": _meta((B, 1)), "kv_len": _meta(()),
-                "cache": {"k": _meta(cshape, torch.bfloat16),
-                          "v": _meta(cshape, torch.bfloat16)}}
+            return _token_specs(shape)
+        # decode: one token and the state of a seq_len + 1 cache
+        B = shape.global_batch
+        return _decode_specs(B, f.state(cfg, B, shape.seq_len + 1, "meta"))
 
     def init(generator):
-        return TF.init_lm(cfg, generator, device)
+        return f.init(cfg, generator, device)
 
     return ModelAPI(cfg, init, forward, _loss_wrapper(forward), init_cache,
                     prefill, decode_step, input_specs, device)

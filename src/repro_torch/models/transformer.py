@@ -117,15 +117,6 @@ def block_decode(params, x, cfg: ModelConfig, k_cache, v_cache, kv_len,
     return x + m, k_cache, v_cache
 
 
-def _layers(blocks: dict, n: int) -> list[dict]:
-    """Per-layer views of the stacked block params."""
-    def take(t, i):
-        if isinstance(t, dict):
-            return {k: take(v, i) for k, v in t.items()}
-        return t[i]
-    return [take(blocks, i) for i in range(n)]
-
-
 # ---------------------------------------------------------------------------
 # Model init.
 # ---------------------------------------------------------------------------
@@ -140,11 +131,7 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
     tests import JAX params through ``repro_torch.interop`` instead.
     """
     check_supported(cfg)
-    dev = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    if generator.device.type != dev.type:
-        raise ValueError(f"generator on {generator.device}, device {dev}")
+    generator, dev = L.init_generator(generator, device)
     params: dict[str, Any] = {}
     axes: dict[str, Any] = {}
     ep, ea = L.init_embedding(generator, cfg.padded_vocab, cfg.d_model,
@@ -186,7 +173,7 @@ def lm_forward(params, cfg: ModelConfig, tokens, embeds=None):
     x = L.embed_fwd(params["embedding"], tokens)
     pos = _positions(cfg, B, S, tokens.device)
     aux = torch.zeros((), device=x.device)
-    for blk in _layers(params["blocks"], cfg.num_layers):
+    for blk in L.layer_views(params["blocks"], cfg.num_layers):
         x, _, a = block_fwd(blk, x, cfg, pos)
         aux = aux + a
     return _final(params, cfg, x), aux
@@ -215,7 +202,7 @@ def lm_decode_step(params, cfg: ModelConfig, cache: dict, kv_len, token):
     B = token.shape[0]
     x = L.embed_fwd(params["embedding"], token)
     pos = _positions(cfg, B, 1, token.device, offset=kv_len)
-    for i, blk in enumerate(_layers(params["blocks"], cfg.num_layers)):
+    for i, blk in enumerate(L.layer_views(params["blocks"], cfg.num_layers)):
         x, _, _ = block_decode(blk, x, cfg, cache["k"][i], cache["v"][i],
                                kv_len, pos)
     return _final(params, cfg, x)[:, 0], cache
@@ -239,7 +226,7 @@ def lm_prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None,
     shape = (cfg.num_layers, B, cache_len, cfg.num_kv_heads, cfg.hd)
     ks = torch.zeros(shape, dtype=x.dtype, device=x.device)
     vs = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    for i, blk in enumerate(_layers(params["blocks"], cfg.num_layers)):
+    for i, blk in enumerate(L.layer_views(params["blocks"], cfg.num_layers)):
         x, (k, v), _ = block_fwd(blk, x, cfg, pos)
         ks[i, :, :S] = k
         vs[i, :, :S] = v
@@ -296,7 +283,7 @@ def lm_decode_step_paged(params, cfg: ModelConfig, cache: dict, kv_len,
     slot_off = kv_len % page
     seq_lens = torch.full((B,), kv_len + 1, dtype=torch.int32,
                           device=token.device)
-    for i, blk in enumerate(_layers(params["blocks"], cfg.num_layers)):
+    for i, blk in enumerate(L.layer_views(params["blocks"], cfg.num_layers)):
         k_pool, v_pool = cache["k_pool"][i], cache["v_pool"][i]
         h = _norm1(blk, cfg, x)
         q, k_new, v_new = L._qkv(blk["attn"], h, acfg, pos)

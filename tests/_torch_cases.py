@@ -1,7 +1,8 @@
-"""Attention case tables and seeded numpy inputs shared by the port's kernel
-tests: ``test_torch_kernels.py`` (plain versions against the JAX package,
-on the CPU) and ``test_torch_kernels_gpu.py`` (CUDA kernels against the
-plain versions, on a card).  Nothing here imports JAX, so the card's
+"""Kernel case tables and seeded numpy inputs shared by the port's kernel
+tests: ``test_torch_kernels.py`` and ``test_torch_ssm_scan.py`` (plain
+versions against the JAX package, on the CPU) and
+``test_torch_kernels_gpu.py`` (CUDA kernels against the plain versions, on
+a card).  Nothing here imports JAX, so the card's
 machine, which has none, can run the GPU tests."""
 
 import numpy as np
@@ -21,6 +22,13 @@ PA_CASES = [
     (1, 4, 4, 32, 8, 8, 8),
     (3, 16, 8, 128, 32, 32, 3),
     (2, 4, 1, 64, 8, 64, 2),
+]
+# B, H, S, K, V, chunk  (GLA_CASES of tests/test_kernels.py)
+GLA_CASES = [
+    (2, 4, 128, 64, 64, 32),
+    (1, 2, 256, 32, 64, 64),
+    (2, 1, 96, 16, 16, 32),
+    (1, 3, 64, 128, 32, 16),
 ]
 # Tolerances of the JAX kernel tests (tests/test_kernels.py), on the max
 # absolute difference.
@@ -47,3 +55,15 @@ def pa_inputs(case, seed=2):
     sl = np.asarray([maxp * page - 3] + [(maxp - 1) * page - 1] * (B - 1),
                     np.int32)[:B]
     return q, kp, vp, bt, sl
+
+
+def gla_inputs(case, seed=4):
+    """q, k (x0.5), v and the log decay w = -0.05 exp(N(0, 1)), float32, as
+    tests/test_kernels.py::test_gla_xla_chunked draws them."""
+    B, H, S, K, V, _ = case
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, S, K), np.float32) * 0.5
+    k = rng.standard_normal((B, H, S, K), np.float32) * 0.5
+    v = rng.standard_normal((B, H, S, V), np.float32)
+    w = -np.exp(rng.standard_normal((B, H, S, K), np.float32)) * 0.05
+    return q, k, v, w.astype(np.float32)

@@ -67,16 +67,26 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     from repro_torch.device import resolve_device
     from repro_torch.interop import to_torch
     from repro_torch.launch import serve
+    from repro_torch.models import hybrid as HY
+    from repro_torch.models import ssm_stack as SS
     from repro_torch.models import transformer as TF
     from repro_torch.models.registry import build_model
 
     cfg = reduced_config(get_config("tinyllama_1p1b"))
+    rwkv = reduced_config(get_config("rwkv6_7b"))
+    zamba = reduced_config(get_config("zamba2_1p2b"))
     calls = [
         lambda: resolve_device(),
         lambda: TF.init_lm(cfg),
         lambda: TF.lm_init_cache(cfg, 1, 8),
         lambda: TF.lm_init_paged_cache(cfg, 1, 8),
         lambda: build_model(cfg),
+        lambda: build_model(rwkv),
+        lambda: build_model(zamba),
+        lambda: SS.init_rwkv_lm(rwkv),
+        lambda: SS.rwkv_init_state(rwkv, 1),
+        lambda: HY.init_hybrid_lm(zamba),
+        lambda: HY.hybrid_state(zamba, 1, 8),
         lambda: to_torch({"w": __import__("numpy").zeros(2)}),
         lambda: serve.main([]),
     ]
@@ -90,6 +100,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """No kernel-to-plain fallback: the CUDA wrappers raise on CPU tensors."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
+    from repro_torch.kernels.ssm_scan.kernel import gla_scan_cuda
 
     q = torch.zeros(1, 4, 2, 32)
     with pytest.raises(ValueError, match="CUDA"):
@@ -99,5 +110,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         paged_attention_cuda(torch.zeros(1, 2, 32), pool, pool,
                              torch.zeros(1, 2, dtype=torch.int32),
                              torch.ones(1, dtype=torch.int32))
+    q = torch.zeros(1, 2, 8, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        gla_scan_cuda(q, q, q, q)
     assert importlib.import_module("repro_torch.kernels._build").BUILD_DIR \
         == ROOT / "build" / "torch_kernels"

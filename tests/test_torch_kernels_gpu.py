@@ -4,19 +4,25 @@ so they run on the card's machine:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py -q
 
-Inputs and tolerances are those of ``test_torch_kernels.py``
-(``_torch_cases.py``): 2e-5 for fp32 and 2e-2 for bf16.
+Inputs and tolerances are those of ``test_torch_kernels.py`` and
+``test_torch_ssm_scan.py`` (``_torch_cases.py``): 2e-5 for fp32 and 2e-2
+for bf16 on attention; four times that on the GLA scan's output and 1e-3
+on its final state, as the JAX package's GLA tests.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_cases import FA_CASES, PA_CASES, TOL, fa_inputs, pa_inputs
+from _torch_cases import (FA_CASES, GLA_CASES, PA_CASES, TOL, fa_inputs,
+                          gla_inputs, pa_inputs)
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.ssm_scan import gla_scan
+from repro_torch.kernels.ssm_scan.kernel import gla_scan_cuda
+from repro_torch.kernels.ssm_scan.ops import gla_scan_xla
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -52,6 +58,24 @@ def test_flash_attention_cuda_matches_plain(case, dtype, cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [(1, 512, 512, 4, 4, 64, True, None),
+                                  (1, 500, 500, 4, 4, 64, True, None)])
+def test_flash_attention_cuda_one_query_head_per_kv_head(case, dtype,
+                                                         cuda_device):
+    """G = 1 (Zamba2's shared attention block) at S 512: the launcher gives
+    each block 64 positions of one head, so the causal tile skip runs at a
+    coarser grain than at TinyLlama's G = 8."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window = case
+    tq, tk, tv = (_on(a, cuda_device, dtype) for a in fa_inputs(case))
+    out = flash_attention_cuda(tq, tk, tv, causal=causal, window=window)
+    torch.cuda.synchronize()
+    ref = attention_ref(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", PA_CASES)
 def test_paged_attention_cuda_matches_plain(case, dtype, cuda_device):
     q, kp, vp, bt, sl = pa_inputs(case)
@@ -73,3 +97,72 @@ def test_paged_attention_cuda_zero_length_gives_zeros(cuda_device):
                                torch.zeros(q.shape[0], dtype=torch.int32,
                                            device=cuda_device))
     assert torch.count_nonzero(out).item() == 0
+
+
+# ---------------------------------------------------------------------------
+# GLA scan: the kernel against gla_scan_xla (atol = rtol = 4 x TOL on o and
+# 1e-3 on the final state, as tests/test_kernels.py::test_gla_xla_chunked).
+# ---------------------------------------------------------------------------
+
+
+def _gla_close(got, ref, dtype):
+    (o, s), (ro, rs) = got, ref
+    assert o.dtype == ro.dtype and s.dtype == torch.float32
+    assert torch.isfinite(o.float()).all() and torch.isfinite(s).all()
+    tol = 4 * TOL[dtype]
+    np.testing.assert_allclose(_np(o), _np(ro), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(s), _np(rs), atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GLA_CASES + [(2, 2, 200, 64, 64, 64),
+                                              (1, 2, 37, 32, 128, 128)])
+def test_gla_scan_cuda_matches_plain(case, dtype, cuda_device):
+    """GLA_CASES plus a ragged S (200 over chunks of 64) and S below one
+    chunk with V 128 (two V tiles)."""
+    chunk = case[-1]
+    q, k, v, w = gla_inputs(case)
+    tq, tk, tv = (_on(a, cuda_device, dtype) for a in (q, k, v))
+    tw = _on(w, cuda_device)
+    got = gla_scan_cuda(tq, tk, tv, tw, chunk=chunk)
+    torch.cuda.synchronize()
+    _gla_close(got, gla_scan_xla(tq, tk, tv, tw, chunk=chunk), dtype)
+
+
+@pytest.mark.gpu
+def test_gla_scan_cuda_strided_and_broadcast_inputs(cuda_device):
+    """The models' layouts: q/k/v as head-transposed views of (B, S, H, K)
+    and Mamba2's per-head decay broadcast over K with stride 0."""
+    B, S, H, K = 2, 150, 3, 32
+    rng = np.random.default_rng(9)
+    q, k, v = (_on(rng.standard_normal((B, S, H, K), np.float32) * 0.5,
+                   cuda_device).transpose(1, 2) for _ in range(3))
+    dt = _on(-0.05 * np.exp(rng.standard_normal((B, S, H), np.float32)),
+             cuda_device)
+    w = dt.transpose(1, 2)[..., None].expand(B, H, S, K)
+    assert w.stride(-1) == 0 and not q.is_contiguous()
+    got = gla_scan_cuda(q, k, v, w, chunk=64)
+    torch.cuda.synchronize()
+    _gla_close(got, gla_scan_xla(q, k, v, w, chunk=64), "float32")
+
+
+@pytest.mark.gpu
+def test_gla_scan_cuda_strong_decay_equals_plain(cuda_device):
+    """w = -2.5: finite and equal to the plain version, whose exponent guard
+    it copies (not to the naive recurrence, which the guard departs from)."""
+    case = (1, 1, 256, 32, 32, 128)
+    q, k, v, _ = gla_inputs(case, seed=7)
+    tq, tk, tv = (_on(a, cuda_device) for a in (q, k, v))
+    tw = torch.full_like(tq, -2.5)
+    got = gla_scan_cuda(tq, tk, tv, tw, chunk=128)
+    torch.cuda.synchronize()
+    _gla_close(got, gla_scan_xla(tq, tk, tv, tw, chunk=128), "float32")
+
+
+@pytest.mark.gpu
+def test_gla_scan_dispatcher_launches_the_kernel(cuda_device):
+    q, k, v, w = (_on(a, cuda_device) for a in gla_inputs(GLA_CASES[2]))
+    before = gla_scan_cuda.launches
+    gla_scan(q, k, v, w, chunk=32)
+    assert gla_scan_cuda.launches == before + 1

@@ -173,7 +173,7 @@ def test_registry_api_matches_jax_members(model):
 
 
 @pytest.mark.parametrize("arch", ["gemma3_4b", "granite_moe_3b_a800m",
-                                  "qwen2_vl_72b", "rwkv6_7b"])
+                                  "qwen2_vl_72b", "seamless_m4t_medium"])
 def test_unported_families_raise(arch):
     cfg = reduced_config(get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
