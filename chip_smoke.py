@@ -6,15 +6,17 @@
 Phases, each of which exits non-zero on failure:
   1. setup: the card's name and power limit, torch and CUDA versions, TF32
      off for matmuls and cuDNN;
-  2. build the three CUDA kernels from src/repro_torch/csrc (one nvcc each,
-     all started together) into build/torch_kernels/;
+  2. build the four CUDA libraries from src/repro_torch/csrc (one nvcc
+     each, all started together) into build/torch_kernels/, and count the
+     tensor-core instructions (HGMMA) in the bf16 flash library's SASS;
   3. each kernel against its plain PyTorch version at the main paths'
      shapes: max |err| beside the tolerance, and kernel, plain, library
-     (where one call computes the same function) and bound times; then
+     (where one call computes the same function) and bound times; flash
+     on both routes (bf16 on the tensor cores, fp32 on CUDA cores); then
      reduced TinyLlama, RWKV6 and Zamba2 models on the card (the kernels)
      held against the CPU path (their plain versions) in fp32;
   4. the TinyLlama path: full-width TinyLlama (random weights from the
-     seed) -- prefill of 8 x 512 tokens through the flash kernel, dense
+     seed) -- prefill of 8 x 512 tokens through the bf16 flash kernel, dense
      decode, then paged decode through the paged kernel from a pool laid
      out under a shuffled block table, held against the dense decode;
   5. BatchScheduler serving 16 requests over 4 slots at full width;
@@ -35,6 +37,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -47,8 +52,14 @@ import torch
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12        # dense tensor-core bf16, H100 SXM data sheet
+H100_FP32_FLOPS = 67e12         # fp32 on CUDA cores, H100 SXM data sheet
+# The port's kernels (src/repro_torch/csrc/*.cu), as the profiler names them.
+PORT_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_kernel",
+                "paged_attention_kernel", "gla_scan_kernel")
 TOL_BF16 = 2e-2                 # kernel vs plain version, bf16 in and out
-TOL_FP32 = 1e-4                 # reduced model on the card vs the CPU path
+# fp32: the reduced models on the card vs the CPU path, and flash's fp32
+# route vs its plain version
+TOL_FP32 = 1e-4
 # Paged against dense decode of the full model in bf16: the two attention
 # paths round differently and the difference grows through 22 layers; an
 # H100 measured 0.072 at seed 0, and this allows 3.5 times that.
@@ -106,8 +117,9 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+def bound_ms(nbytes: float, flops: float,
+             peak_flops: float = H100_BF16_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -142,46 +154,70 @@ def check_flash(gen, timer) -> dict:
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ops import flash_attention_xla
 
-    # B, Sq, Sk, Hq, Hkv, D, causal, window; the first is TinyLlama's prefill
-    # shape (G = 8 query heads per K/V head), the last Zamba2's shared
-    # attention block (G = 1, which the launcher tiles differently).
-    cases = [(8, 512, 512, 32, 4, 64, True, None),
-             (8, 500, 500, 32, 4, 64, True, None),
-             (8, 512, 512, 32, 4, 64, True, 128),
-             (8, 128, 512, 32, 4, 64, False, None),
-             (8, 512, 512, 32, 32, 64, True, None)]
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # B, Sq, Sk, Hq, Hkv, D, causal, window, dtype, SDPA timed; the first is
+    # TinyLlama's prefill shape (G = 8 query heads per K/V head), the fifth
+    # Zamba2's shared attention block (G = 1), the last the first in fp32,
+    # which takes the CUDA-core route.
+    cases = [(8, 512, 512, 32, 4, 64, True, None, bf16, True),
+             (8, 500, 500, 32, 4, 64, True, None, bf16, False),
+             (8, 512, 512, 32, 4, 64, True, 128, bf16, False),
+             (8, 128, 512, 32, 4, 64, False, None, bf16, True),
+             (8, 512, 512, 32, 32, 64, True, None, bf16, True),
+             (8, 512, 512, 32, 4, 64, True, None, fp32, False)]
+    tol = {bf16: TOL_BF16, fp32: TOL_FP32}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
-    for B, Sq, Sk, Hq, Hkv, D, causal, window in cases:
-        q = torch.randn(B, Sq, Hq, D, generator=gen, device="cuda").bfloat16()
-        k = torch.randn(B, Sk, Hkv, D, generator=gen, device="cuda").bfloat16()
-        v = torch.randn(B, Sk, Hkv, D, generator=gen, device="cuda").bfloat16()
+    for B, Sq, Sk, Hq, Hkv, D, causal, window, dtype, time_sdpa in cases:
+        q = torch.randn(B, Sq, Hq, D, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(B, Sk, Hkv, D, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(B, Sk, Hkv, D, generator=gen, device="cuda").to(dtype)
         kw = dict(causal=causal, window=window, q_offset=0 if causal else None)
+        before = dict(flash_attention_cuda.launches_by_route)
         out = flash_attention_cuda(q, k, v, **kw)
         torch.cuda.synchronize()
+        routed = [r for r, n in flash_attention_cuda.launches_by_route.items()
+                  if n != before[r]]
         ref = flash_attention_xla(q, k, v, **kw)
         err = max_err(out, ref)
-        ok = bool(torch.isfinite(out.float()).all()) and err <= TOL_BF16
+        want_route = "wgmma" if dtype == bf16 else "simt"
+        ok = (bool(torch.isfinite(out.float()).all()) and err <= tol[dtype]
+              and routed == [want_route])
         q_off = 0 if causal else Sk - Sq
         flops = 4 * D * B * Hq * flash_pairs(Sq, Sk, causal, window, q_off)
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        bnd, by = bound_ms(nbytes, flops)
-        row = dict(case=(B, Sq, Sk, Hq, Hkv, D, causal, window), err=err, ok=ok,
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        # fp32 stays exact only on CUDA cores, so its operations count at
+        # the fp32 rate, not the tensor cores' bf16 rate.
+        bnd, by = bound_ms(nbytes, flops,
+                           H100_BF16_FLOPS if dtype == bf16 else H100_FP32_FLOPS)
+        row = dict(case=(B, Sq, Sk, Hq, Hkv, D, causal, window, str(dtype)[6:]),
+                   route=routed, err=err, ok=ok,
                    ms=timer.ms(lambda: flash_attention_cuda(q, k, v, **kw)),
                    plain_ms=timer.ms(lambda: flash_attention_xla(q, k, v, **kw),
                                      iters=5),
                    bound_ms=bnd, bound_by=by, library_ms=None)
-        if not rows:  # SDPA as the yardstick at the prefill shape only
+        if time_sdpa:  # the yardstick: one PyTorch call, never used by the port
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            sdpa = torch.nn.functional.scaled_dot_product_attention
             row["library_ms"] = timer.ms(
-                lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
-        log(f"flash {row['case']}: max|err| {err:.3e} (tol {TOL_BF16}) "
-            f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
-            f"library {row['library_ms']} ms bound {bnd:.4f} ms ({by})")
+                lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True))
+        log(f"flash {row['case']} route {routed}: max|err| {err:.3e} (tol "
+            f"{tol[dtype]}) kernel {row['ms']:.4f} ms plain "
+            f"{row['plain_ms']:.4f} ms library {row['library_ms']} ms bound "
+            f"{bnd:.4f} ms ({by})")
         rows.append(row)
     if not all(r["ok"] for r in rows):
-        raise SystemExit("flash_attention kernel disagrees with its plain version")
+        raise SystemExit("flash_attention kernel disagrees with its plain "
+                         "version or took the wrong route")
     return rows[0]
+
+
+def sass_count(lib: Path, opcode: str) -> int:
+    """Instructions of ``opcode`` in the SASS of a built library."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    return len(re.findall(rf"\b{opcode}\.", sass))
 
 
 def timed_prefill(api, params, tokens, S, cache_len, kernels, want):
@@ -196,6 +232,8 @@ def timed_prefill(api, params, tokens, S, cache_len, kernels, want):
     del warm
     for fn in kernels.values():
         fn.launches = 0
+        for r in getattr(fn, "launches_by_route", {}):
+            fn.launches_by_route[r] = 0
     sync(dev)
     t0 = time.perf_counter()
     logits, cache = api.prefill(params, {"tokens": tokens[:, :S]},
@@ -205,6 +243,13 @@ def timed_prefill(api, params, tokens, S, cache_len, kernels, want):
     counts = {name: fn.launches for name, fn in kernels.items()}
     if counts != want:
         raise SystemExit(f"{cfg.name} prefill launched {counts}, want {want}")
+    flash = kernels.get("flash_attention")
+    if flash is not None and hasattr(flash, "launches_by_route"):
+        # bf16 prefill: every flash launch on the tensor-core route
+        routes = dict(flash.launches_by_route)
+        if routes != {"wgmma": want["flash_attention"], "simt": 0}:
+            raise SystemExit(f"{cfg.name} prefill flash routes {routes}")
+        counts = {**counts, "flash_attention routes": routes}
     if (tuple(logits.shape) != (tokens.shape[0], cfg.padded_vocab)
             or not torch.isfinite(logits.float()).all()):
         raise SystemExit(f"prefill logits {tuple(logits.shape)} not finite")
@@ -408,7 +453,7 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
     tokens = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=gen,
                            device=dev)
     with torch.inference_mode():
-        _, cache, prefill_s, _ = timed_prefill(
+        _, cache, prefill_s, prefill_counts = timed_prefill(
             api, params, tokens, S, cache_len,
             {"flash_attention": flash_cuda, "paged_attention": paged_cuda},
             {"flash_attention": cfg.num_layers, "paged_attention": 0})
@@ -441,7 +486,8 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
     err, same, n_tok, gap = near_tie(torch.stack(dense_logits), p)
     log(f"main path {cfg.name} L{cfg.num_layers} d{cfg.d_model}: prefill "
         f"{B}x{S} {prefill_s * 1e3:.3f} ms, dense decode {dense_s * 1e3:.3f} "
-        f"ms/step, paged decode {paged_s * 1e3:.3f} ms/step, launches {counts}")
+        f"ms/step, paged decode {paged_s * 1e3:.3f} ms/step, launches {counts}, "
+        f"prefill flash routes {prefill_counts['flash_attention routes']}")
     log(f"paged vs dense decode logits over {steps} steps: max|err| {err:.4f} "
         f"(tol {TOL_PAGED_LOGITS}); greedy tokens equal {same}/{n_tok}, "
         f"largest dense-logit gap where they differ {gap:.4f}")
@@ -535,10 +581,16 @@ def profile_steps(label: str, step, t0: int, n: int) -> None:
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx")) / n
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    ours = [(name, sum(e.self_device_time_total for e in es) / 1e3 / n,
+             sum(e.count for e in es) / n) for name in PORT_KERNELS
+            if (es := [e for e in kernels if f"::{name}<" in e.key])]
     log(f"{label} step: wall {wall:.3f} ms, device busy {busy:.3f} ms "
         f"(idle {100 * (1 - busy / wall):.1f}%), {launches:.0f} launches; top: "
         + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / n:.3f} ms"
-                    for e in top))
+                    for e in top)
+        + "; port kernels: " + ("; ".join(
+            f"{name} {ms:.3f} ms in {count:.0f} launches"
+            for name, ms, count in ours) or "none"))
 
 
 # ---------------------------------------------------------------------------
@@ -640,13 +692,18 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    report = _build.build(["flash_attention", "paged_attention", "gla_scan"])
+    report = _build.build(["flash_attention", "flash_attention_wgmma",
+                           "paged_attention", "gla_scan"])
     log(f"build: {time.perf_counter() - t0:.1f} s wall into {_build.BUILD_DIR} "
         + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in report.items()))
     for k, v in report.items():
         for line in v["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma", "arning")):
                 log(f"  {k}: {line.strip()}")
+    hgmma = sass_count(_build.lib_path("flash_attention_wgmma"), "HGMMA")
+    log(f"SASS of flash_attention_wgmma: {hgmma} HGMMA instructions")
+    if hgmma == 0:
+        raise SystemExit("the bf16 flash library has no tensor-core (HGMMA) instruction")
 
     # 3. kernels against plain versions
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -707,9 +764,10 @@ def main() -> int:
              "src/repro/kernels/paged_attention/kernel.py:84"),
             ("gla_scan", gla_row, counts["rwkv6_7b"]["gla_scan"],
              "src/repro/kernels/ssm_scan/kernel.py:76")):
+        source = "flash_attention_wgmma" if kname == "flash_attention" else kname
         entries.append({
             "name": kname, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{kname}.cu", "replaces": line,
+            "source": f"src/repro_torch/csrc/{source}.cu", "replaces": line,
             "launches": launches, "max_abs_err": row["err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

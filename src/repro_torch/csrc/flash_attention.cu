@@ -1,23 +1,24 @@
-// Forward GQA flash attention for Hopper (sm_90a).
+// Forward GQA flash attention for Hopper (sm_90a), fp32 on CUDA cores.
 //
 // Replaces flash_attention_pallas / _fa_kernel
-// (src/repro/kernels/flash_attention/kernel.py).  Same semantics: scale
-// D**-0.5 (or the caller's), causal masking at q_offset, an optional sliding
-// window (keys with kpos > qpos - window), fp32 online softmax with the finite
-// mask value -1e30 in both the fill and the running-max start, and key tiles
-// wholly above the diagonal or left of the window skipped.  Unlike the Pallas
-// kernel it takes ragged Sq and Sk: keys past Sk are masked and queries past
-// Sq are not written.
+// (src/repro/kernels/flash_attention/kernel.py) for fp32 inputs; bf16
+// inputs take the tensor-core kernel in flash_attention_wgmma.cu.  Same
+// semantics: scale D**-0.5 (or the caller's), causal masking at q_offset,
+// an optional sliding window (keys with kpos > qpos - window), fp32 online
+// softmax with the finite mask value -1e30 in both the fill and the
+// running-max start, and key tiles wholly above the diagonal or left of the
+// window skipped.  Unlike the Pallas kernel it takes ragged Sq and Sk: keys
+// past Sk are masked and queries past Sq are not written.
 //
-// Bound: at prefill shapes (S 512, D 64, bf16) the bytes of q, k, v and out
-// bind an H100 slightly before the causal flops at the tensor cores' bf16
-// rate do (chip_smoke.py computes both).  This first version multiplies on
-// fp32 CUDA cores, not the tensor cores, which keeps fp32 inputs exact but
-// makes its arithmetic the real limit; wgmma and TMA are later work.  What it keeps out of device memory:
-// one block per (batch * kv head, query tile) stacks the G query heads of
-// that kv head into its rows, so every K/V tile it stages in shared memory is
-// read once for all G heads.  Four threads share one query row, each holding
-// every fourth element of the row's q and accumulator in registers.
+// Bound: the fp32 route exists for exactness, not speed.  Its products are
+// fp32 FMAs on CUDA cores, which keep fp32 inputs exact where TF32 tensor
+// cores would round them to 10 bits (the fp32 parity tolerance is 2e-5), so
+// its arithmetic at 67 TFLOP/s, not its bytes, is its real limit.  What it
+// keeps out of device memory: one block per (batch * kv head, query tile)
+// stacks the G query heads of that kv head into its rows, so every K/V tile
+// it stages in shared memory is read once for all G heads.  Four threads
+// share one query row, each holding every fourth element of the row's q and
+// accumulator in registers.
 //
 // Layouts (all contiguous): q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D),
 // out (B, Sq, Hq, D), Hq = Hkv * G.
@@ -140,37 +141,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     void* out, int B, int Sq, int Sk, int Hq, int Hkv,
-                     int causal, int window, int q_offset, float scale,
-                     cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// window <= 0 means no window.  is_bf16: 1 for bfloat16, 0 for float32.
-// Returns a cudaError_t.  Head dims 32, 64 and 128 are compiled.
+// fp32 q, k, v, out; window <= 0 means no window.  Returns a cudaError_t.
+// Head dims 32, 64 and 128 are compiled.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,
                                       int Sk, int Hq, int Hkv, int D,
                                       int causal, int window, int q_offset,
-                                      float scale, int is_bf16, void* stream) {
+                                      float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      is_bf16 ? launch_d<__nv_bfloat16>(D, q, k, v, out, B, Sq, Sk, Hq, Hkv,
-                                        causal, window, q_offset, scale, s)
-              : launch_d<float>(D, q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
-                                window, q_offset, scale, s);
+  cudaError_t err;
+  switch (D) {
+    case 32:
+      err = launch<float, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, s);
+      break;
+    case 64:
+      err = launch<float, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, s);
+      break;
+    case 128:
+      err = launch<float, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

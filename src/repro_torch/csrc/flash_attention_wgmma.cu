@@ -1,0 +1,372 @@
+// Forward GQA flash attention in bf16 on Hopper's tensor cores (sm_90a).
+//
+// Replaces flash_attention_pallas / _fa_kernel
+// (src/repro/kernels/flash_attention/kernel.py:96, pallas_call at :142) for
+// bf16 inputs; fp32 inputs take the CUDA-core kernel in flash_attention.cu.
+// Same semantics as both: scale D**-0.5 (or the caller's), causal masking
+// at q_offset, an optional sliding window (keys with kpos > qpos - window),
+// fp32 running max, sum and accumulator with the finite mask value -1e30 in
+// both the fill and the running-max start, key tiles wholly above the
+// diagonal or left of the window skipped, ragged Sq and Sk (keys past Sk are
+// masked, queries past Sq are not written), any G = Hq / Hkv, D 32, 64 or
+// 128.
+//
+// Bound: at TinyLlama's prefill shape (B 8, S 512, Hq 32, Hkv 4, D 64,
+// causal) the call moves 37.7 MB (q, k, v read once, out written once:
+// 0.0113 ms at 3.35 TB/s) and does 8.6 GFLOP over the causal pairs (0.0087
+// ms at 989 TFLOP/s bf16), so bytes and operations bind it almost equally;
+// at G = 1 the bytes double.  fp32 CUDA cores (67 TFLOP/s) could not come
+// within 10x of either, so both products run on the tensor cores:
+//   * S = Q K^T is wgmma m64n64k16 with Q and K both read from shared memory
+//     (K-major: D is contiguous in both, no transpose);
+//   * the online softmax runs in fp32 on S's accumulator fragment, each row
+//     reduced across the four threads that hold it;
+//   * O += P V is wgmma m64nDk16 with P converted to bf16 in registers (the
+//     accumulator layout is the A-fragment layout, so no shuffle) and V read
+//     MN-major from shared memory (the transpose bit).
+// Loads cost no thread instructions: one producer warp issues TMA copies of
+// the Q tile and of a two-stage ring of K/V tiles, each stage with a "full"
+// and an "empty" mbarrier, while the consumer warpgroup computes on the
+// other stage.  TMA's zero fill past a tensor's end covers ragged Sq and Sk.
+// The swizzle of each TMA box (128 bytes for a 64-column row, 64 bytes at
+// D 32; D 128 loads two 64-column boxes) is the swizzle the wgmma
+// descriptors name.  The output goes through a padded shared-memory tile so
+// that each row is stored as 16-byte pieces.
+//
+// Layout choice: one block per (batch, query head, 64-row query tile), not
+// the G heads of a kv head stacked into a tile's rows as the CUDA-core
+// kernel does.  One position per row keeps the mask a compare, needs no
+// padding rows at G = 3, and makes every G the same code.  The G blocks of
+// one kv head are adjacent in launch order, so after the first of them
+// reads a K/V tile from device memory the others find it in L2.  Query
+// tiles are launched longest first (the causal frontier makes the last
+// tile of a sequence the longest).
+//
+// Layouts (all contiguous, 16-byte aligned): q (B, Sq, Hq, D), k/v
+// (B, Sk, Hkv, D), out (B, Sq, Hq, D), Hq = Hkv * G.
+
+#include <dlfcn.h>
+
+#include "common.cuh"
+#include "hopper.cuh"
+
+namespace {
+
+using namespace repro::sm90;
+using repro::kNegInf;
+using bf16 = __nv_bfloat16;
+
+constexpr int kBM = 64;                   // query rows per block: one wgmma M tile
+constexpr int kBN = 64;                   // keys per K/V tile
+constexpr int kStages = 2;                // K/V tiles in flight
+constexpr int kConsumers = 128;           // one warpgroup computes
+constexpr int kThreads = kConsumers + 32; // and one warp loads
+
+template <int D>
+struct Tile {
+  static constexpr int kCols = D < 64 ? D : 64;   // columns of a TMA box and a swizzled row
+  static constexpr int kRowBytes = 2 * kCols;     // 64 or 128
+  static constexpr int kBlocks = D / kCols;       // column blocks: 2 at D 128
+  static constexpr int kAtom = 8 * kRowBytes;     // one swizzle atom: 8 rows
+  static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 1 : 2;  // descriptor code
+  static constexpr int kOStride = D + 8;          // padded output row: no bank conflicts
+};
+
+// Every tile is a multiple of 1024 bytes, so each starts on a swizzle atom.
+template <int D>
+struct __align__(1024) Smem {
+  bf16 q[kBM * D];
+  bf16 k[kStages][kBN * D];
+  bf16 v[kStages][kBN * D];
+  bf16 o[kBM * Tile<D>::kOStride];
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+  uint64_t q_full;
+};
+
+// Descriptor of columns [16 kk, 16 kk + 16) of a K-major tile of `rows` rows
+// (Q or K): the start moves within the swizzled row, or to the next column
+// block at D 128; the stride byte offset steps over 8-row atoms.
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t base, int rows, int kk) {
+  using T = Tile<D>;
+  const int col = 16 * kk;
+  return smem_desc(base + (col / T::kCols) * rows * T::kRowBytes + (col % T::kCols) * 2,
+                   16, T::kAtom, T::kSwizzle);
+}
+
+// Descriptor of keys [16 kk, 16 kk + 16) of a V tile read MN-major (D
+// contiguous): the leading byte offset steps between 64-column blocks.
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t base, int kk) {
+  using T = Tile<D>;
+  return smem_desc(base + 16 * kk * T::kRowBytes, kBN * T::kRowBytes, T::kAtom,
+                   T::kSwizzle);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// Key tiles any row of the query tile at q0 can see: [lo, lo + n * kBN).
+struct KeyRange {
+  int lo, n;
+};
+
+__device__ __forceinline__ KeyRange key_range(int q0, int Sq, int Sk, int causal,
+                                              int window, int q_offset) {
+  const int q_first = q_offset + q0;
+  const int q_last = q_offset + min(q0 + kBM, Sq) - 1;
+  const int hi = causal ? min(Sk, q_last + 1) : Sk;
+  const int lo = window > 0 ? max(0, q_first - window + 1) / kBN * kBN : 0;
+  return {lo, hi > lo ? (hi - lo + kBN - 1) / kBN : 0};
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 128 ? 2 : 3)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             bf16* __restrict__ out, int Sq, int Sk, int Hq, int G,
+                             int causal, int window, int q_offset, float scale_log2) {
+  using T = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+
+  const int b = blockIdx.x / Hq, h = blockIdx.x % Hq, kvh = h / G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // longest tiles first
+  const KeyRange kr = key_range(q0, Sq, Sk, causal, window, q_offset);
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], kConsumers / 32);
+    }
+    mbar_init(&sm.q_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // the producer warp: one thread issues every load
+    if (tid == kConsumers) {
+      mbar_arrive_expect_tx(&sm.q_full, kBM * D * 2);
+      for (int c = 0; c < T::kBlocks; ++c)
+        tma_load_4d(sm.q + c * kBM * T::kCols, &q_map, &sm.q_full, c * T::kCols, h, q0, b);
+      for (int i = 0; i < kr.n; ++i) {
+        const int st = i % kStages;
+        if (i >= kStages) mbar_wait(&sm.empty[st], (i / kStages - 1) & 1);
+        mbar_arrive_expect_tx(&sm.full[st], 2 * kBN * D * 2);
+        const int k0 = kr.lo + i * kBN;
+        for (int c = 0; c < T::kBlocks; ++c) {
+          tma_load_4d(sm.k[st] + c * kBN * T::kCols, &k_map, &sm.full[st], c * T::kCols,
+                      kvh, k0, b);
+          tma_load_4d(sm.v[st] + c * kBN * T::kCols, &v_map, &sm.full[st], c * T::kCols,
+                      kvh, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup.  In the m64nN accumulator layout thread (warp,
+  // lane) holds rows 16 warp + lane / 4 (+ 8) and, for each 8-column group
+  // j, columns 8 j + 2 (lane % 4) (+ 1): element e of a fragment is row
+  // (e >> 1) & 1, column group e >> 2, column e & 1 of the pair.
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = 16 * warp + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  const int qpos0 = q_offset + q0 + row0;
+  const uint32_t q_base = smem_addr(sm.q);
+
+  float o[D / 2], s[kBN / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < kBN / 2; ++e) s[e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this thread's share
+
+  mbar_wait(&sm.q_full, 0);
+  for (int i = 0; i < kr.n; ++i) {
+    const int st = i % kStages;
+    mbar_wait(&sm.full[st], (i / kStages) & 1);
+    const uint32_t k_base = smem_addr(sm.k[st]), v_base = smem_addr(sm.v[st]);
+
+    // S = Q K^T, D in steps of 16.
+#pragma unroll
+    for (int e = 0; e < kBN / 2; ++e) reg_fence(s[e]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_m64n64k16(s, kmajor_desc<D>(q_base, kBM, kk),
+                         kmajor_desc<D>(k_base, kBN, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int e = 0; e < kBN / 2; ++e) reg_fence(s[e]);
+
+    // Online softmax in the log2 domain; the mask only on edge tiles.
+    const int k0 = kr.lo + i * kBN;
+    const bool edge = k0 + kBN > Sk || (causal && k0 + kBN - 1 > q_offset + q0) ||
+                      (window > 0 && k0 <= q_offset + q0 + kBM - 1 - window);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int e = 0; e < kBN / 2; ++e) {
+      const int r = (e >> 1) & 1;
+      float x = s[e] * scale_log2;
+      if (edge) {
+        const int kpos = k0 + 8 * (e >> 2) + col0 + (e & 1);
+        const int qpos = qpos0 + 8 * r;
+        bool ok = kpos < Sk;
+        if (causal) ok = ok && kpos <= qpos;
+        if (window > 0) ok = ok && kpos > qpos - window;
+        if (!ok) x = kNegInf;
+      }
+      s[e] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+    uint32_t p[kBN / 4];
+#pragma unroll
+    for (int e = 0; e < kBN / 2; e += 2) {
+      const int r = (e >> 1) & 1;
+      const float p0 = exp2f(s[e] - m[r]), p1 = exp2f(s[e + 1] - m[r]);
+      l[r] += p0 + p1;
+      p[e / 2] = pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+
+    // O += P V, keys in steps of 16: A fragment kk is p[4 kk .. 4 kk + 3].
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) reg_fence(o[e]);
+#pragma unroll
+    for (int e = 0; e < kBN / 4; ++e) reg_fence(p[e]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+      wgmma_rs<D>(o, a, mnmajor_desc<D>(v_base, kk));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) reg_fence(o[e]);
+    if (lane == 0) mbar_arrive(&sm.empty[st]);
+  }
+
+  // Epilogue: O / (l + 1e-30) in bf16 through shared memory, rows < Sq.
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / (l[r] + 1e-30f);
+  }
+#pragma unroll
+  for (int e = 0; e < D / 2; e += 2) {
+    const int r = (e >> 1) & 1;
+    const int row = row0 + 8 * r, col = 8 * (e >> 2) + col0;
+    *reinterpret_cast<uint32_t*>(&sm.o[row * T::kOStride + col]) =
+        pack_bf16(o[e] * inv[r], o[e + 1] * inv[r]);
+  }
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
+  constexpr int kPieces = D / 8;  // 16-byte pieces of a row
+  for (int idx = tid; idx < kBM * kPieces; idx += kConsumers) {
+    const int row = idx / kPieces, c = idx % kPieces;
+    if (q0 + row < Sq) {
+      const size_t off = ((static_cast<size_t>(b) * Sq + q0 + row) * Hq + h) * D + 8 * c;
+      *reinterpret_cast<int4*>(out + off) =
+          *reinterpret_cast<const int4*>(&sm.o[row * T::kOStride + 8 * c]);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, which the CUDA runtime has already
+// loaded; this library itself links only against the runtime.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, S, H, D) bf16 tensor as a 4-D TMA map, innermost first (D, H, S, B),
+// whose box is `rows` positions of one head by 64 columns (all D at D 32).
+bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int rows) {
+  const int cols = D < 64 ? D : 64;
+  const cuuint64_t s = S > 0 ? S : 1;  // no load is issued when S is 0
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), s, cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(D) * 2, cuuint64_t(H) * D * 2, s * H * D * 2};
+  const cuuint32_t box[4] = {cuuint32_t(cols), 1, cuuint32_t(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                        dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                   int Sk, int Hq, int Hkv, int causal, int window, int q_offset,
+                   float scale, cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map;
+  if (!make_map(&q_map, q, B, Sq, Hq, D, kBM) || !make_map(&k_map, k, B, Sk, Hkv, D, kBN) ||
+      !make_map(&v_map, v, B, Sk, Hkv, D, kBN))
+    return cudaErrorInvalidValue;
+  const int smem = sizeof(Smem<D>) + 1024;  // + alignment slack
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * Hq, (Sq + kBM - 1) / kBM);
+  flash_attention_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
+      q_map, k_map, v_map, static_cast<bf16*>(out), Sq, Sk, Hq, Hq / Hkv, causal, window,
+      q_offset, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// bf16 q, k, v, out; window <= 0 means no window.  Returns a cudaError_t.
+// Head dims 32, 64 and 128 are compiled.
+extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
+                                            void* out, int B, int Sq, int Sk, int Hq,
+                                            int Hkv, int D, int causal, int window,
+                                            int q_offset, float scale, void* stream) {
+  if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (D) {
+    case 32:
+      err = launch<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, s);
+      break;
+    case 64:
+      err = launch<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, s);
+      break;
+    case 128:
+      err = launch<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}

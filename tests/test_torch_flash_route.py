@@ -1,0 +1,48 @@
+"""The flash-attention wrapper's route rule, on the CPU: bfloat16 calls take
+the tensor-core kernel (``wgmma``), float32 calls the CUDA-core kernel
+(``simt``), and anything else raises before a kernel library is built or
+loaded.  The kernels themselves are held against their plain versions on a
+card by ``test_torch_kernels_gpu.py``."""
+
+import pytest
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import kernel as K
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "simt")])
+@pytest.mark.parametrize("head_dim", K.HEAD_DIMS)
+def test_route_by_dtype(dtype, route, head_dim):
+    assert K.route(dtype, head_dim) == route
+
+
+@pytest.mark.parametrize("dtype,head_dim,error", [
+    (torch.float16, 64, TypeError),
+    (torch.float64, 64, TypeError),
+    (torch.bfloat16, 96, ValueError),
+    (torch.float32, 16, ValueError),
+])
+def test_unsupported_call_raises_before_any_library(dtype, head_dim, error,
+                                                    monkeypatch):
+    def no_build(*args, **kwargs):
+        raise AssertionError("a kernel library was requested")
+
+    monkeypatch.setattr(_build, "function", no_build)
+    monkeypatch.setattr(_build, "build", no_build)
+    libs = dict(_build._libs)
+    launches = (K.flash_attention_cuda.launches,
+                dict(K.flash_attention_cuda.launches_by_route))
+    q = torch.zeros(1, 8, 2, head_dim, dtype=dtype)
+    with pytest.raises(error, match="flash_attention_cuda"):
+        K.flash_attention_cuda(q, q, q)
+    with pytest.raises(error):
+        K.route(dtype, head_dim)
+    assert _build._libs == libs
+    assert (K.flash_attention_cuda.launches,
+            K.flash_attention_cuda.launches_by_route) == launches
+
+
+def test_route_counters_cover_every_route():
+    assert set(K.flash_attention_cuda.launches_by_route) == set(K._LIBS)

@@ -43,17 +43,34 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.float().cpu().numpy()
 
 
+ROUTE = {"float32": "simt", "bfloat16": "wgmma"}
+
+
+def _flash_close(case, dtype, device, q_offset=None):
+    """The kernel against attention_ref on fa_inputs(case), and the launch
+    counted on the route the dtype names (bf16: tensor cores, fp32: CUDA
+    cores)."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window = case
+    tq, tk, tv = (_on(a, device, dtype) for a in fa_inputs(case))
+    before = dict(flash_attention_cuda.launches_by_route)
+    out = flash_attention_cuda(tq, tk, tv, causal=causal, window=window,
+                               q_offset=q_offset)
+    torch.cuda.synchronize()
+    after = flash_attention_cuda.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == ROUTE[dtype]) for r in after}
+    ref = attention_ref(tq, tk, tv, causal=causal, window=window,
+                        q_offset=q_offset)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    np.testing.assert_allclose(_np(out), _np(ref), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FA_CASES)
 def test_flash_attention_cuda_matches_plain(case, dtype, cuda_device):
-    B, Sq, Sk, Hq, Hkv, D, causal, window = case
-    tq, tk, tv = (_on(a, cuda_device, dtype) for a in fa_inputs(case))
-    out = flash_attention_cuda(tq, tk, tv, causal=causal, window=window)
-    torch.cuda.synchronize()
-    ref = attention_ref(tq, tk, tv, causal=causal, window=window)
-    np.testing.assert_allclose(_np(out), _np(ref), atol=TOL[dtype],
-                               rtol=TOL[dtype])
+    _flash_close(case, dtype, cuda_device)
 
 
 @pytest.mark.gpu
@@ -62,16 +79,31 @@ def test_flash_attention_cuda_matches_plain(case, dtype, cuda_device):
                                   (1, 500, 500, 4, 4, 64, True, None)])
 def test_flash_attention_cuda_one_query_head_per_kv_head(case, dtype,
                                                          cuda_device):
-    """G = 1 (Zamba2's shared attention block) at S 512: the launcher gives
-    each block 64 positions of one head, so the causal tile skip runs at a
-    coarser grain than at TinyLlama's G = 8."""
-    B, Sq, Sk, Hq, Hkv, D, causal, window = case
-    tq, tk, tv = (_on(a, cuda_device, dtype) for a in fa_inputs(case))
-    out = flash_attention_cuda(tq, tk, tv, causal=causal, window=window)
-    torch.cuda.synchronize()
-    ref = attention_ref(tq, tk, tv, causal=causal, window=window)
-    np.testing.assert_allclose(_np(out), _np(ref), atol=TOL[dtype],
-                               rtol=TOL[dtype])
+    """G = 1 (Zamba2's shared attention block) at S 512: the fp32 kernel
+    gives each block 64 positions of one head, so its causal tile skip runs
+    at a coarser grain than at TinyLlama's G = 8."""
+    _flash_close(case, dtype, cuda_device)
+
+
+# B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset
+FA_EDGE_CASES = [
+    (2, 77, 77, 6, 2, 64, True, None, None),      # ragged S, G = 3
+    (1, 64, 192, 8, 2, 64, True, None, None),     # Sq < Sk: q_offset 128
+    (1, 64, 192, 8, 2, 64, True, None, 37),       # q_offset off the tile grid
+    (1, 100, 300, 4, 2, 64, False, None, None),   # non-causal, Sq != Sk
+    (1, 128, 128, 8, 1, 128, True, None, None),   # D 128 at G 8
+    (1, 200, 200, 4, 4, 32, True, 50, None),      # window at D 32
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_EDGE_CASES)
+def test_flash_attention_cuda_edge_shapes(case, dtype, cuda_device):
+    """Shapes off the 64-row and 64-key tile grids, an explicit q_offset,
+    cross-attention without a mask, D 128 (two TMA column boxes) and a
+    window at D 32 (the 64-byte swizzle)."""
+    _flash_close(case[:-1], dtype, cuda_device, q_offset=case[-1])
 
 
 @pytest.mark.gpu
