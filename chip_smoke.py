@@ -6,13 +6,15 @@
 Phases, each of which exits non-zero on failure:
   1. setup: the card's name and power limit, torch and CUDA versions, TF32
      off for matmuls and cuDNN;
-  2. build the four CUDA libraries from src/repro_torch/csrc (one nvcc
+  2. build the five CUDA libraries from src/repro_torch/csrc (one nvcc
      each, all started together) into build/torch_kernels/, and count the
-     tensor-core instructions (HGMMA) in the bf16 flash library's SASS;
+     tensor-core instructions in the SASS of the bf16 flash library (HGMMA)
+     and of the bf16 gla_scan library (HMMA);
   3. each kernel against its plain PyTorch version at the main paths'
      shapes: max |err| beside the tolerance, and kernel, plain, library
      (where one call computes the same function) and bound times; flash
-     on both routes (bf16 on the tensor cores, fp32 on CUDA cores); then
+     and gla_scan on both routes (bf16 on the tensor cores, fp32 and the
+     shapes the tensor-core gla_scan does not take on CUDA cores); then
      reduced TinyLlama, RWKV6 and Zamba2 models on the card (the kernels)
      held against the CPU path (their plain versions) in fp32;
   4. the TinyLlama path: full-width TinyLlama (random weights from the
@@ -23,7 +25,8 @@ Phases, each of which exits non-zero on failure:
   6. PagedKVEngine: real K pages of the card's pool spill to the DDS page
      store (host path) and come back bit-exact through the DPU offload path;
   7. rwkv6_7b at full width and depth: prefill of 8 x 512 tokens (one
-     gla_scan launch per layer), 8 decode steps through the recurrence,
+     gla_scan launch per layer, each on the tensor-core route), 8 decode
+     steps through the recurrence,
      each held against the last logits of a prefill of the longer prompt,
      then BatchScheduler serving;
   8. zamba2_1p2b at full width and depth: the same, with the shared
@@ -55,7 +58,9 @@ H100_BF16_FLOPS = 989e12        # dense tensor-core bf16, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # fp32 on CUDA cores, H100 SXM data sheet
 # The port's kernels (src/repro_torch/csrc/*.cu), as the profiler names them.
 PORT_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_kernel",
-                "paged_attention_kernel", "gla_scan_kernel")
+                "paged_attention_kernel", "gla_scan_mma_kernel", "gla_scan_kernel")
+# The route every bf16 prefill launch of a kernel must take.
+PREFILL_ROUTES = {"flash_attention": "wgmma", "gla_scan": "mma"}
 TOL_BF16 = 2e-2                 # kernel vs plain version, bf16 in and out
 # fp32: the reduced models on the card vs the CPU path, and flash's fp32
 # route vs its plain version
@@ -71,6 +76,10 @@ TOL_PAGED_LOGITS = 0.25
 # final fp32 state.
 TOL_GLA = {torch.float32: 4 * 2e-5, torch.bfloat16: 4 * 2e-2}
 TOL_GLA_STATE = 1e-3
+# gla_scan at RWKV6's prefill shape on the CUDA-core kernel, the only one
+# before the tensor-core route (this script on an H100 80GB HBM3 at 700 W;
+# PERF.md, section 6).
+GLA_SIMT_BEFORE_MS = 1.2745
 # prefill(S) + n decode steps against the last logits of prefill(S + n), in
 # bf16 at full depth: the chunked kernel and the recurrence round
 # differently, as do the matmuls of one token and of a whole prompt.  An
@@ -243,13 +252,13 @@ def timed_prefill(api, params, tokens, S, cache_len, kernels, want):
     counts = {name: fn.launches for name, fn in kernels.items()}
     if counts != want:
         raise SystemExit(f"{cfg.name} prefill launched {counts}, want {want}")
-    flash = kernels.get("flash_attention")
-    if flash is not None and hasattr(flash, "launches_by_route"):
-        # bf16 prefill: every flash launch on the tensor-core route
-        routes = dict(flash.launches_by_route)
-        if routes != {"wgmma": want["flash_attention"], "simt": 0}:
-            raise SystemExit(f"{cfg.name} prefill flash routes {routes}")
-        counts = {**counts, "flash_attention routes": routes}
+    for name, fn in kernels.items():
+        if hasattr(fn, "launches_by_route"):
+            # bf16 prefill: every launch on the kernel's tensor-core route
+            routes = dict(fn.launches_by_route)
+            if routes != {r: want[name] * (r == PREFILL_ROUTES[name]) for r in routes}:
+                raise SystemExit(f"{cfg.name} prefill {name} routes {routes}")
+            counts[f"{name} routes"] = routes
     if (tuple(logits.shape) != (tokens.shape[0], cfg.padded_vocab)
             or not torch.isfinite(logits.float()).all()):
         raise SystemExit(f"prefill logits {tuple(logits.shape)} not finite")
@@ -324,14 +333,18 @@ def check_gla(gen, timer) -> dict:
     from repro_torch.kernels.ssm_scan.ops import gla_scan_xla
 
     bf16, fp32 = torch.bfloat16, torch.float32
-    # B, H, S, K, V, dtype, decay; the first is RWKV6's prefill shape.
-    cases = [(8, 64, 512, 64, 64, bf16, "rwkv6"),
-             (8, 64, 500, 64, 64, bf16, "rwkv6"),
-             (8, 64, 512, 64, 64, bf16, "mamba2"),   # one decay per head
-             (8, 64, 512, 64, 64, fp32, "rwkv6"),
-             (8, 64, 512, 64, 64, fp32, "strong")]   # w = -2.5
+    # B, H, S, K, V, dtype, decay, chunk, route.  The first is RWKV6's
+    # prefill shape and the third Zamba2's (one decay per head); chunk 120
+    # is not a multiple of 16, so that bf16 call takes the CUDA-core route.
+    cases = [(8, 64, 512, 64, 64, bf16, "rwkv6", 128, "mma"),
+             (8, 64, 500, 64, 64, bf16, "rwkv6", 128, "mma"),
+             (8, 64, 512, 64, 64, bf16, "mamba2", 128, "mma"),
+             (8, 64, 512, 64, 64, bf16, "strong", 128, "mma"),   # w = -2.5
+             (8, 64, 512, 64, 64, bf16, "rwkv6", 120, "simt"),
+             (8, 64, 512, 64, 64, fp32, "rwkv6", 128, "simt"),
+             (8, 64, 512, 64, 64, fp32, "strong", 128, "simt")]
     rows = []
-    for B, H, S, K, V, dtype, decay in cases:
+    for B, H, S, K, V, dtype, decay, chunk, want_route in cases:
         def randn(*shape):
             return torch.randn(*shape, generator=gen, device="cuda")
         q, k = (randn(B, H, S, K) * 0.5).to(dtype), (randn(B, H, S, K) * 0.5).to(dtype)
@@ -342,27 +355,38 @@ def check_gla(gen, timer) -> dict:
             w = torch.full((B, H, S, K), -2.5, device="cuda")
         else:
             w = -0.05 * torch.exp(randn(B, H, S, K))
-        o, st = gla_scan_cuda(q, k, v, w)
+        before = dict(gla_scan_cuda.launches_by_route)
+        o, st = gla_scan_cuda(q, k, v, w, chunk)
         torch.cuda.synchronize()
-        ro, rs = gla_scan_xla(q, k, v, w)
+        routed = [r for r, n in gla_scan_cuda.launches_by_route.items()
+                  if n != before[r]]
+        ro, rs = gla_scan_xla(q, k, v, w, chunk)
         tol = TOL_GLA[dtype]
         ok = (bool(torch.isfinite(o.float()).all() and torch.isfinite(st).all())
               and torch.allclose(o.float(), ro.float(), atol=tol, rtol=tol)
-              and torch.allclose(st, rs, atol=TOL_GLA_STATE, rtol=TOL_GLA_STATE))
+              and torch.allclose(st, rs, atol=TOL_GLA_STATE, rtol=TOL_GLA_STATE)
+              and routed == [want_route])
         err, s_err = max_err(o, ro), max_err(st, rs)
-        bnd, by = bound_ms(*gla_work(q, v, w, 128))
-        row = dict(case=(B, H, S, K, V, str(dtype)[6:], decay), err=err, ok=ok,
-                   ms=timer.ms(lambda: gla_scan_cuda(q, k, v, w)),
-                   plain_ms=timer.ms(lambda: gla_scan_xla(q, k, v, w), iters=5),
+        # fp32 stays exact only on CUDA cores, so its operations count at
+        # the fp32 rate, not the tensor cores' bf16 rate.
+        bnd, by = bound_ms(*gla_work(q, v, w, chunk),
+                           H100_BF16_FLOPS if dtype == bf16 else H100_FP32_FLOPS)
+        row = dict(case=(B, H, S, K, V, str(dtype)[6:], decay, chunk),
+                   route=routed, err=err, ok=ok,
+                   ms=timer.ms(lambda: gla_scan_cuda(q, k, v, w, chunk)),
+                   plain_ms=timer.ms(lambda: gla_scan_xla(q, k, v, w, chunk), iters=5),
                    bound_ms=bnd, bound_by=by, library_ms=None)
-        log(f"gla_scan {row['case']}: max|err| o {err:.3e} (atol=rtol {tol:g}, "
-            f"largest |o| {ro.float().abs().max().item():.1f}) state "
-            f"{s_err:.3e} ({TOL_GLA_STATE:g}); kernel {row['ms']:.4f} ms plain "
-            f"{row['plain_ms']:.4f} ms bound {bnd:.4f} ms ({by}); no single "
-            "PyTorch call computes a gated linear-attention scan")
+        extra = "" if rows else (f"; CUDA-core kernel before the tensor-core "
+                                 f"route {GLA_SIMT_BEFORE_MS} ms")
+        log(f"gla_scan {row['case']} route {routed}: max|err| o {err:.3e} "
+            f"(atol=rtol {tol:g}, largest |o| {ro.float().abs().max().item():.1f}) "
+            f"state {s_err:.3e} ({TOL_GLA_STATE:g}); kernel {row['ms']:.4f} ms "
+            f"plain {row['plain_ms']:.4f} ms bound {bnd:.4f} ms ({by}){extra}; "
+            "no single PyTorch call computes a gated linear-attention scan")
         rows.append(row)
     if not all(r["ok"] for r in rows):
-        raise SystemExit("gla_scan kernel disagrees with its plain version")
+        raise SystemExit("gla_scan kernel disagrees with its plain version "
+                         "or took the wrong route")
     return rows[0]
 
 
@@ -583,7 +607,8 @@ def profile_steps(label: str, step, t0: int, n: int) -> None:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
     ours = [(name, sum(e.self_device_time_total for e in es) / 1e3 / n,
              sum(e.count for e in es) / n) for name in PORT_KERNELS
-            if (es := [e for e in kernels if f"::{name}<" in e.key])]
+            if (es := [e for e in kernels
+                       if re.search(rf"::{name}[<(]", e.key)])]
     log(f"{label} step: wall {wall:.3f} ms, device busy {busy:.3f} ms "
         f"(idle {100 * (1 - busy / wall):.1f}%), {launches:.0f} launches; top: "
         + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / n:.3f} ms"
@@ -693,7 +718,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     report = _build.build(["flash_attention", "flash_attention_wgmma",
-                           "paged_attention", "gla_scan"])
+                           "paged_attention", "gla_scan", "gla_scan_mma"])
     log(f"build: {time.perf_counter() - t0:.1f} s wall into {_build.BUILD_DIR} "
         + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in report.items()))
     for k, v in report.items():
@@ -704,6 +729,10 @@ def main() -> int:
     log(f"SASS of flash_attention_wgmma: {hgmma} HGMMA instructions")
     if hgmma == 0:
         raise SystemExit("the bf16 flash library has no tensor-core (HGMMA) instruction")
+    hmma = sass_count(_build.lib_path("gla_scan_mma"), "HMMA")
+    log(f"SASS of gla_scan_mma: {hmma} HMMA instructions")
+    if hmma == 0:
+        raise SystemExit("the bf16 gla_scan library has no tensor-core (HMMA) instruction")
 
     # 3. kernels against plain versions
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -757,16 +786,19 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     entries = []
-    for kname, row, launches, line in (
+    # name, timed row, main-path launches, source, TPU kernel.  The kernel
+    # route is the one the timed case was asserted to take; paged attention
+    # has one kernel and no route.
+    for kname, row, launches, source, line in (
             ("flash_attention", flash, tiny_counts["flash_attention"],
-             "src/repro/kernels/flash_attention/kernel.py:96"),
+             "flash_attention_wgmma", "src/repro/kernels/flash_attention/kernel.py:96"),
             ("paged_attention", paged_row, tiny_counts["paged_attention"],
-             "src/repro/kernels/paged_attention/kernel.py:84"),
+             "paged_attention", "src/repro/kernels/paged_attention/kernel.py:84"),
             ("gla_scan", gla_row, counts["rwkv6_7b"]["gla_scan"],
-             "src/repro/kernels/ssm_scan/kernel.py:76")):
-        source = "flash_attention_wgmma" if kname == "flash_attention" else kname
+             "gla_scan_mma", "src/repro/kernels/ssm_scan/kernel.py:76")):
         entries.append({
             "name": kname, "route": "cuda",
+            "kernel_route": row["route"][0] if "route" in row else None,
             "source": f"src/repro_torch/csrc/{source}.cu", "replaces": line,
             "launches": launches, "max_abs_err": row["err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -1,15 +1,27 @@
-"""Hand-written CUDA chunked gated-linear-attention scan (``csrc/gla_scan.cu``).
+"""Hand-written CUDA chunked gated-linear-attention scan: two routes by a
+rule of dtype, shape and alignment.
 
 Replaces ``gla_scan_pallas`` (src/repro/kernels/ssm_scan/kernel.py).  One
-block per (batch * head, V tile) walks the chunks of its sequence in order
-and keeps the K x V state in shared memory, as the Pallas kernel keeps it in
-VMEM across its sequential chunk axis.  The arithmetic is ``gla_scan_xla``'s
-(clamp of w to [-30, 0], exp(-a) capped at e^60) in fp32 on CUDA cores.
-Unlike the Pallas kernel it takes any S: positions past S act as the plain
-version's zero padding.  q, k and v may be strided views (the models pass
-head-transposed ones); w may have a stride-0 K axis (Mamba2's one decay per
-head), which the kernel then reads once per position.  At the prefill shape
-the kernel's bound is the bytes it must move; see the source note.
+block per (batch * head) walks the chunks of its sequence in order and
+carries the K x V state, as the Pallas kernel carries it in VMEM across its
+sequential chunk axis.  Both routes compute ``gla_scan_xla``'s arithmetic
+(clamp of w to [-30, 0], exp(-a) capped at e^60) from a zero state, take
+any S (positions past S act as the plain version's zero padding), strided
+q/k/v views (the models pass head-transposed ones) and a stride-0 K axis on
+w (Mamba2's one decay per head), which they then read once per position:
+
+  * ``mma`` (``csrc/gla_scan_mma.cu``) takes bf16 calls with K = V = 64,
+    ``C = min(chunk, S)`` a multiple of 16, 16-byte aligned q/k/v and B/H/S
+    strides of q/k/v that are multiples of 8 elements -- what RWKV6 and
+    Mamba2 run.  Every product is on the tensor cores (mma.sync m16n8k16),
+    with each fp32-derived operand split into bf16 hi and lo parts;
+  * ``simt`` (``csrc/gla_scan.cu``) takes every other call: fp32 products
+    on CUDA cores, K and V in {16, 32, 64, 128} (V tiles of at most 64).
+
+A route is never chosen because a build or a launch failed; a call that
+neither kernel takes raises before a library is built or loaded.  At the
+prefill shape the kernels' bound is the bytes they must move; see the
+source notes.
 """
 
 from __future__ import annotations
@@ -20,19 +32,26 @@ import torch
 
 from repro_torch.kernels import _build
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-             + [ctypes.c_longlong] * 16 + [ctypes.c_int, ctypes.c_void_p])
-DIMS = (16, 32, 64, 128)    # the K and V sizes the source compiles
+DIMS = (16, 32, 64, 128)    # the K and V sizes the simt source compiles
 MAX_CHUNK = 128
+MMA_DIM = 64                # the K = V the mma source compiles
+# route -> (library, C entry point, argument types)
+_LIBS = {
+    "mma": ("gla_scan_mma", "gla_scan_mma_launch",
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+            + [ctypes.c_longlong] * 13 + [ctypes.c_void_p]),
+    "simt": ("gla_scan", "gla_scan_launch",
+             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+             + [ctypes.c_longlong] * 16 + [ctypes.c_int, ctypes.c_void_p]),
+}
 
 
-def gla_scan_cuda(q, k, v, w, chunk: int = 128):
-    """q, k, w: (B, H, S, K); v: (B, H, S, V) -> (o (B, H, S, V) in q's
-    dtype, final state (B, H, K, V) fp32), on the card, from a zero state."""
+def route(q, k, v, w, chunk: int = 128) -> str:
+    """The kernel a call takes, ``"mma"`` or ``"simt"``, from the dtypes,
+    K, V, ``C = min(chunk, S)`` and the alignment of q, k and v.  Raises
+    TypeError or ValueError for a call that neither kernel takes."""
     B, H, S, K = q.shape
     V = v.shape[-1]
-    if not all(t.is_cuda and t.device == q.device for t in (q, k, v, w)):
-        raise ValueError("gla_scan_cuda: q, k, v, w must be on one CUDA device")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"gla_scan_cuda: dtype {q.dtype} not in (float32, bfloat16)")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -49,20 +68,43 @@ def gla_scan_cuda(q, k, v, w, chunk: int = 128):
     if any(t.stride(-1) != 1 for t in (q, k, v)) or w.stride(-1) not in (0, 1):
         raise ValueError("gla_scan_cuda: the last axis of q, k, v must be "
                          "contiguous and that of w contiguous or broadcast")
+    C = min(chunk, S)
+    if (q.dtype == torch.bfloat16 and K == V == MMA_DIM and C > 0 and C % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+            and all(s % 8 == 0 for t in (q, k, v) for s in t.stride()[:3])):
+        return "mma"
+    return "simt"
+
+
+def gla_scan_cuda(q, k, v, w, chunk: int = 128):
+    """q, k, w: (B, H, S, K); v: (B, H, S, V) -> (o (B, H, S, V) in q's
+    dtype, final state (B, H, K, V) fp32), on the card, from a zero state."""
+    kind = route(q, k, v, w, chunk)
+    B, H, S, K = q.shape
+    V = v.shape[-1]
+    if not all(t.is_cuda and t.device == q.device for t in (q, k, v, w)):
+        raise ValueError("gla_scan_cuda: q, k, v, w must be on one CUDA device")
     o = torch.empty((B, H, S, V), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o, torch.zeros((B, H, K, V), dtype=torch.float32, device=q.device)
     state = torch.empty((B, H, K, V), dtype=torch.float32, device=q.device)
-    fn = _build.function("gla_scan", "gla_scan_launch", _ARGTYPES)
-    strides = [s for t in (q, k, v, w) for s in t.stride()]
+    lib, symbol, argtypes = _LIBS[kind]
+    fn = _build.function(lib, symbol, argtypes)
+    ptrs = [t.data_ptr() for t in (q, k, v, w, o, state)]
     with torch.cuda.device(q.device):
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                  o.data_ptr(), state.data_ptr(), B, H, S, K, V,
-                  min(chunk, S), *strides, int(q.dtype == torch.bfloat16),
-                  torch.cuda.current_stream().cuda_stream)
-    _build.check("gla_scan", code)
+        stream = torch.cuda.current_stream().cuda_stream
+        if kind == "mma":
+            strides = [s for t in (q, k, v) for s in t.stride()[:3]] + list(w.stride())
+            code = fn(*ptrs, B, H, S, min(chunk, S), *strides, stream)
+        else:
+            strides = [s for t in (q, k, v, w) for s in t.stride()]
+            code = fn(*ptrs, B, H, S, K, V, min(chunk, S), *strides,
+                      int(q.dtype == torch.bfloat16), stream)
+    _build.check(lib, code)
     gla_scan_cuda.launches += 1
+    gla_scan_cuda.launches_by_route[kind] += 1
     return o, state
 
 
 gla_scan_cuda.launches = 0
+gla_scan_cuda.launches_by_route = {"mma": 0, "simt": 0}

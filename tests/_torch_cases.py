@@ -30,6 +30,22 @@ GLA_CASES = [
     (2, 1, 96, 16, 16, 32),
     (1, 3, 64, 128, 32, 16),
 ]
+# B, H, S, chunk, layout, decay: calls of the tensor-core GLA route (bf16,
+# K = V = 64).  layout "transposed" passes q/k/v as head-transposed views of
+# (B, S, H, 64) buffers, as RWKV6 and Mamba2 do; decay "rwkv6" is a per-key
+# log decay, "mamba2" one decay per head broadcast over K with stride 0,
+# "strong" w = -2.5 everywhere.
+GLA_MMA_CASES = [
+    (2, 4, 256, 32, "contiguous", "rwkv6"),
+    (2, 4, 256, 64, "contiguous", "rwkv6"),
+    (2, 4, 256, 128, "contiguous", "rwkv6"),
+    (1, 3, 500, 128, "contiguous", "rwkv6"),     # ragged S
+    (1, 2, 200, 48, "contiguous", "rwkv6"),      # 3 query tiles a chunk
+    (1, 2, 40, 16, "contiguous", "rwkv6"),       # 1 query tile, ragged
+    (2, 3, 300, 128, "transposed", "rwkv6"),
+    (2, 3, 256, 128, "transposed", "mamba2"),
+    (1, 2, 256, 128, "contiguous", "strong"),
+]
 # Tolerances of the JAX kernel tests (tests/test_kernels.py), on the max
 # absolute difference.
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -66,4 +82,21 @@ def gla_inputs(case, seed=4):
     k = rng.standard_normal((B, H, S, K), np.float32) * 0.5
     v = rng.standard_normal((B, H, S, V), np.float32)
     w = -np.exp(rng.standard_normal((B, H, S, K), np.float32)) * 0.05
+    return q, k, v, w.astype(np.float32)
+
+
+def gla_mma_inputs(case, seed=11):
+    """q, k (x0.5), v as (B, S, H, 64) float32 and w as (B, S, H, 64), or
+    (B, S, H, 1) for the "mamba2" decay (one per head), drawn as
+    chip_smoke.py draws them."""
+    B, H, S, _, _, decay = case
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, H, 64), np.float32) * 0.5
+    k = rng.standard_normal((B, S, H, 64), np.float32) * 0.5
+    v = rng.standard_normal((B, S, H, 64), np.float32)
+    if decay == "strong":
+        w = np.full((B, S, H, 64), -2.5, np.float32)
+    else:
+        w = -0.05 * np.exp(rng.standard_normal(
+            (B, S, H, 1 if decay == "mamba2" else 64), np.float32))
     return q, k, v, w.astype(np.float32)

@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (FA_CASES, GLA_CASES, PA_CASES, TOL, fa_inputs,
-                          gla_inputs, pa_inputs)
+from _torch_cases import (FA_CASES, GLA_CASES, GLA_MMA_CASES, PA_CASES, TOL,
+                          fa_inputs, gla_inputs, gla_mma_inputs, pa_inputs)
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
@@ -146,26 +146,69 @@ def _gla_close(got, ref, dtype):
     np.testing.assert_allclose(_np(s), _np(rs), atol=1e-3, rtol=1e-3)
 
 
+def _gla_routed(q, k, v, w, chunk, want):
+    """gla_scan_cuda, with the launch counted on route ``want`` alone."""
+    before = dict(gla_scan_cuda.launches_by_route)
+    got = gla_scan_cuda(q, k, v, w, chunk=chunk)
+    torch.cuda.synchronize()
+    after = gla_scan_cuda.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == want) for r in after}
+    return got
+
+
+# GLA_CASES plus a ragged S (200 over chunks of 64) and S below one chunk
+# with V 128 (two V tiles), each with the route it takes: bf16 at K = V = 64
+# and C % 16 == 0 on the tensor cores, everything else on CUDA cores.
+GLA_GPU_CASES = [
+    (GLA_CASES[0], "float32", "simt"), (GLA_CASES[0], "bfloat16", "mma"),
+    (GLA_CASES[1], "float32", "simt"), (GLA_CASES[1], "bfloat16", "simt"),
+    (GLA_CASES[2], "float32", "simt"), (GLA_CASES[2], "bfloat16", "simt"),
+    (GLA_CASES[3], "float32", "simt"), (GLA_CASES[3], "bfloat16", "simt"),
+    ((2, 2, 200, 64, 64, 64), "float32", "simt"),
+    ((2, 2, 200, 64, 64, 64), "bfloat16", "mma"),
+    ((1, 2, 37, 32, 128, 128), "float32", "simt"),
+    ((1, 2, 37, 32, 128, 128), "bfloat16", "simt"),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", GLA_CASES + [(2, 2, 200, 64, 64, 64),
-                                              (1, 2, 37, 32, 128, 128)])
-def test_gla_scan_cuda_matches_plain(case, dtype, cuda_device):
-    """GLA_CASES plus a ragged S (200 over chunks of 64) and S below one
-    chunk with V 128 (two V tiles)."""
+@pytest.mark.parametrize("case,dtype,route", GLA_GPU_CASES)
+def test_gla_scan_cuda_matches_plain(case, dtype, route, cuda_device):
     chunk = case[-1]
     q, k, v, w = gla_inputs(case)
     tq, tk, tv = (_on(a, cuda_device, dtype) for a in (q, k, v))
     tw = _on(w, cuda_device)
-    got = gla_scan_cuda(tq, tk, tv, tw, chunk=chunk)
-    torch.cuda.synchronize()
+    got = _gla_routed(tq, tk, tv, tw, chunk, route)
     _gla_close(got, gla_scan_xla(tq, tk, tv, tw, chunk=chunk), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GLA_MMA_CASES)
+def test_gla_scan_cuda_mma_route_matches_plain(case, cuda_device):
+    """The tensor-core route: chunks 32, 64 and 128, a ragged S, chunks of
+    three and of one query tile, the models' head-transposed q/k/v views,
+    Mamba2's stride-0 w, and strong decay."""
+    B, H, S, chunk, layout, decay = case
+    q, k, v, w = gla_mma_inputs(case)
+    if layout == "transposed":
+        tq, tk, tv = (_on(a, cuda_device, "bfloat16").transpose(1, 2)
+                      for a in (q, k, v))
+        assert not tq.is_contiguous()
+    else:
+        tq, tk, tv = (_on(np.ascontiguousarray(a.transpose(0, 2, 1, 3)),
+                          cuda_device, "bfloat16") for a in (q, k, v))
+    tw = _on(w, cuda_device).transpose(1, 2).expand(B, H, S, 64)
+    assert (tw.stride(-1) == 0) == (decay == "mamba2")
+    got = _gla_routed(tq, tk, tv, tw, chunk, "mma")
+    _gla_close(got, gla_scan_xla(tq, tk, tv, tw, chunk=chunk), "bfloat16")
 
 
 @pytest.mark.gpu
 def test_gla_scan_cuda_strided_and_broadcast_inputs(cuda_device):
     """The models' layouts: q/k/v as head-transposed views of (B, S, H, K)
-    and Mamba2's per-head decay broadcast over K with stride 0."""
+    and Mamba2's per-head decay broadcast over K with stride 0 (fp32, so
+    the CUDA-core route)."""
     B, S, H, K = 2, 150, 3, 32
     rng = np.random.default_rng(9)
     q, k, v = (_on(rng.standard_normal((B, S, H, K), np.float32) * 0.5,
@@ -174,21 +217,20 @@ def test_gla_scan_cuda_strided_and_broadcast_inputs(cuda_device):
              cuda_device)
     w = dt.transpose(1, 2)[..., None].expand(B, H, S, K)
     assert w.stride(-1) == 0 and not q.is_contiguous()
-    got = gla_scan_cuda(q, k, v, w, chunk=64)
-    torch.cuda.synchronize()
+    got = _gla_routed(q, k, v, w, 64, "simt")
     _gla_close(got, gla_scan_xla(q, k, v, w, chunk=64), "float32")
 
 
 @pytest.mark.gpu
 def test_gla_scan_cuda_strong_decay_equals_plain(cuda_device):
     """w = -2.5: finite and equal to the plain version, whose exponent guard
-    it copies (not to the naive recurrence, which the guard departs from)."""
+    it copies (not to the naive recurrence, which the guard departs from);
+    fp32, so the CUDA-core route."""
     case = (1, 1, 256, 32, 32, 128)
     q, k, v, _ = gla_inputs(case, seed=7)
     tq, tk, tv = (_on(a, cuda_device) for a in (q, k, v))
     tw = torch.full_like(tq, -2.5)
-    got = gla_scan_cuda(tq, tk, tv, tw, chunk=128)
-    torch.cuda.synchronize()
+    got = _gla_routed(tq, tk, tv, tw, 128, "simt")
     _gla_close(got, gla_scan_xla(tq, tk, tv, tw, chunk=128), "float32")
 
 
