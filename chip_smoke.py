@@ -6,7 +6,7 @@
 Phases, each of which exits non-zero on failure:
   1. setup: the card's name and power limit, torch and CUDA versions, TF32
      off for matmuls and cuDNN;
-  2. build the five CUDA libraries from src/repro_torch/csrc (one nvcc
+  2. build the six CUDA libraries from src/repro_torch/csrc (one nvcc
      each, all started together) into build/torch_kernels/, and count the
      tensor-core instructions in the SASS of the bf16 flash library (HGMMA)
      and of the bf16 gla_scan library (HMMA);
@@ -14,13 +14,17 @@ Phases, each of which exits non-zero on failure:
      shapes: max |err| beside the tolerance, and kernel, plain, library
      (where one call computes the same function) and bound times; flash
      and gla_scan on both routes (bf16 on the tensor cores, fp32 and the
-     shapes the tensor-core gla_scan does not take on CUDA cores); then
+     shapes the tensor-core gla_scan does not take on CUDA cores); paged
+     on its cluster-split route at the decode shape and at a long context
+     (up to 32768 positions), beside the CUDA-core kernel it replaced, and
+     the host time of one paged wrapper call; then
      reduced TinyLlama, RWKV6 and Zamba2 models on the card (the kernels)
      held against the CPU path (their plain versions) in fp32;
   4. the TinyLlama path: full-width TinyLlama (random weights from the
      seed) -- prefill of 8 x 512 tokens through the bf16 flash kernel, dense
-     decode, then paged decode through the paged kernel from a pool laid
-     out under a shuffled block table, held against the dense decode;
+     decode, then paged decode through the paged kernel (every launch on
+     the split route) from a pool laid out under a shuffled block table,
+     held against the dense decode;
   5. BatchScheduler serving 16 requests over 4 slots at full width;
   6. PagedKVEngine: real K pages of the card's pool spill to the DDS page
      store (host path) and come back bit-exact through the DPU offload path;
@@ -58,10 +62,17 @@ H100_BF16_FLOPS = 989e12        # dense tensor-core bf16, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # fp32 on CUDA cores, H100 SXM data sheet
 # The port's kernels (src/repro_torch/csrc/*.cu), as the profiler names them.
 PORT_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_kernel",
-                "paged_attention_kernel", "gla_scan_mma_kernel", "gla_scan_kernel")
+                "paged_attention_split_kernel", "paged_attention_kernel",
+                "gla_scan_mma_kernel", "gla_scan_kernel")
 # The route every bf16 prefill launch of a kernel must take.
 PREFILL_ROUTES = {"flash_attention": "wgmma", "gla_scan": "mma"}
 TOL_BF16 = 2e-2                 # kernel vs plain version, bf16 in and out
+# Paged at the long context (16384-32768 positions) vs its plain version:
+# there a typical output is about sqrt(e / context) ~ 0.009, so 2e-2 would
+# pass a kernel that dropped a cluster rank's pages (about 0.003 typical,
+# 0.013 at most).  An H100 measured 1.2e-4 (one bf16 rounding of the
+# output); this sits between that and the typical output.
+TOL_PAGED_LONG = 2e-3
 # fp32: the reduced models on the card vs the CPU path, and flash's fp32
 # route vs its plain version
 TOL_FP32 = 1e-4
@@ -107,7 +118,12 @@ def tree_to(tree, device, dtype=None):
 class Timer:
     """Device time of one call, median over launches, with the 50 MB L2
     evicted before each launch as the main path finds it (every layer
-    reads other weights and another layer's cache in between)."""
+    reads other weights and another layer's cache in between).  After the
+    flush the card spins for about 0.2 ms, so that the host has queued the
+    call before the card reaches its start event: a kernel of a few
+    microseconds is timed, not the host's work in its wrapper."""
+
+    HOLD_CYCLES = 400_000       # about 0.2 ms at the H100's 1.98 GHz
 
     def __init__(self):
         self.flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
@@ -119,6 +135,7 @@ class Timer:
                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
         for start, end in ev:
             self.flush.zero_()
+            torch.cuda._sleep(self.HOLD_CYCLES)
             start.record()
             fn()
             end.record()
@@ -253,7 +270,7 @@ def timed_prefill(api, params, tokens, S, cache_len, kernels, want):
     if counts != want:
         raise SystemExit(f"{cfg.name} prefill launched {counts}, want {want}")
     for name, fn in kernels.items():
-        if hasattr(fn, "launches_by_route"):
+        if name in PREFILL_ROUTES:
             # bf16 prefill: every launch on the kernel's tensor-core route
             routes = dict(fn.launches_by_route)
             if routes != {r: want[name] * (r == PREFILL_ROUTES[name]) for r in routes}:
@@ -274,40 +291,109 @@ def near_tie(ref, got) -> tuple[float, int, int, float]:
     return max_err(ref, got), int((tr == tg).sum().item()), tr.numel(), gap
 
 
-def check_paged(gen, timer) -> dict:
-    from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-
-    B, Hq, Hkv, D, page, max_len = 8, 32, 4, 64, 128, 1024
+def paged_inputs(gen, B, Hq, Hkv, D, page, max_len, min_len):
+    """bf16 q and pools of B * max_len / page pages under a shuffled block
+    table, and seq_lens drawn from [min_len, max_len] with
+    seq_lens[0] = max_len."""
     maxp = max_len // page
     P = B * maxp
     q = torch.randn(B, Hq, D, generator=gen, device="cuda").bfloat16()
     kp = torch.randn(P, page, Hkv, D, generator=gen, device="cuda").bfloat16()
     vp = torch.randn(P, page, Hkv, D, generator=gen, device="cuda").bfloat16()
     table = torch.randperm(P, generator=gen, device="cuda").int().view(B, maxp)
-    seq_lens = torch.randint(1, max_len + 1, (B,), generator=gen,
+    seq_lens = torch.randint(min_len, max_len + 1, (B,), generator=gen,
                              device="cuda", dtype=torch.int32)
     seq_lens[0] = max_len
-    out = paged_attention_cuda(q, kp, vp, table, seq_lens)
+    return q, kp, vp, table, seq_lens
+
+
+def paged_simt(q, kp, vp, table, seq_lens):
+    """The CUDA-core paged kernel (the simt route, the only one before the
+    split route) launched through its C entry point on a call the rule
+    sends to the split route, for timing beside it in the same run."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention import kernel as K
+
+    lib, symbol = K._LIBS["simt"]
+    out = torch.empty_like(q)
+    B, Hq, D = q.shape
+    code = _build.function(lib, symbol, K._ARGTYPES)(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
+        seq_lens.data_ptr(), out.data_ptr(), B, Hq, kp.shape[2], D,
+        kp.shape[1], table.shape[1], D ** -0.5, 1,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code)
+    return out
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one call of ``fn`` (microseconds, median of 5 runs of
+    ``calls`` calls): what a wrapper costs the host before its kernel is
+    queued, which the Timer's device times leave out."""
+    fn()
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
     torch.cuda.synchronize()
-    ref = paged_attention_ref(q, kp, vp, table, seq_lens)
-    err = max_err(out, ref)
-    rows = int(seq_lens.sum().item())
-    nbytes = (2 * rows * Hkv * D * 2 + 2 * 2 * q.numel()
-              + 4 * (table.numel() + B))
-    bnd, by = bound_ms(nbytes, 4 * rows * Hq * D)
-    row = dict(err=err, ms=timer.ms(
-        lambda: paged_attention_cuda(q, kp, vp, table, seq_lens)),
-        plain_ms=timer.ms(
-            lambda: paged_attention_ref(q, kp, vp, table, seq_lens), iters=5),
-        bound_ms=bnd, bound_by=by, library_ms=None)
-    log(f"paged B {B} Hq {Hq} Hkv {Hkv} D {D} page {page} seq_lens "
-        f"{seq_lens.tolist()}: max|err| {err:.3e} (tol {TOL_BF16}) kernel "
-        f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms bound "
-        f"{bnd:.4f} ms ({by}); no single PyTorch call pages")
-    if not (torch.isfinite(out.float()).all() and err <= TOL_BF16):
-        raise SystemExit("paged_attention kernel disagrees with its plain version")
-    return row
+    return statistics.median(runs)
+
+
+def check_paged(gen, timer) -> dict:
+    from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    # TinyLlama's heads (G = 8, D 64) at page 128: the decode shape of
+    # earlier PRs (contexts up to 1024), then a long context (16384-32768
+    # positions: 256 table columns, two pools of 2048 pages, 134 MB each),
+    # where the bytes bound and not the launch latency is the yardstick.
+    B, Hq, Hkv, D, page = 8, 32, 4, 64, 128
+    rows = []
+    for label, max_len, min_len, tol in (("decode", 1024, 1, TOL_BF16),
+                                         ("long context", 32768, 16384,
+                                          TOL_PAGED_LONG)):
+        q, kp, vp, table, seq_lens = paged_inputs(gen, B, Hq, Hkv, D, page,
+                                                  max_len, min_len)
+        args = (q, kp, vp, table, seq_lens)
+        before = dict(paged_attention_cuda.launches_by_route)
+        out = paged_attention_cuda(*args)
+        torch.cuda.synchronize()
+        routed = [r for r, n in paged_attention_cuda.launches_by_route.items()
+                  if n != before[r]]
+        ref = paged_attention_ref(*args)
+        err = max_err(out, ref)
+        simt_err = max_err(paged_simt(*args), ref)
+        n_rows = int(seq_lens.sum().item())
+        nbytes = (2 * n_rows * Hkv * D * 2 + 2 * 2 * q.numel()
+                  + 4 * (table.numel() + B))
+        bnd, by = bound_ms(nbytes, 4 * n_rows * Hq * D)
+        row = dict(case=(label, B, Hq, Hkv, D, page, max_len), route=routed,
+                   err=err, ms=timer.ms(lambda: paged_attention_cuda(*args)),
+                   plain_ms=timer.ms(lambda: paged_attention_ref(*args), iters=5),
+                   bound_ms=bnd, bound_by=by, library_ms=None,
+                   ok=(bool(torch.isfinite(out.float()).all())
+                       and err <= tol and simt_err <= tol
+                       and routed == ["split"]))
+        simt_ms = timer.ms(lambda: paged_simt(*args))
+        ref_abs = ref.float().abs()
+        log(f"paged {label}: B {B} Hq {Hq} Hkv {Hkv} D {D} page {page} "
+            f"seq_lens {seq_lens.tolist()} route {routed}: max|err| {err:.3e} "
+            f"(tol {tol}; |ref| mean {ref_abs.mean().item():.3e} max "
+            f"{ref_abs.max().item():.3e}) kernel {row['ms']:.4f} ms, CUDA-core "
+            f"kernel (simt route) {simt_ms:.4f} ms (max|err| {simt_err:.3e}), "
+            f"plain {row['plain_ms']:.4f} ms, bound {bnd:.4f} ms ({by}, "
+            f"{nbytes / 1e6:.1f} MB); no single PyTorch call pages")
+        rows.append(row)
+    log(f"paged wrapper host time {host_us(lambda: paged_attention_cuda(*args)):.2f} "
+        f"us a call (checks, route, ctypes call and launch; median of 5 x 200 "
+        f"calls)")
+    if not all(r["ok"] for r in rows):
+        raise SystemExit("paged_attention kernel disagrees with its plain "
+                         "version or took the wrong route")
+    return rows[0]
 
 
 def gla_work(q, v, w, chunk: int) -> tuple[int, int]:
@@ -506,12 +592,18 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
     if counts != {"flash_attention": cfg.num_layers,
                   "paged_attention": cfg.num_layers * steps}:
         raise SystemExit(f"main path launches {counts}")
+    paged_routes = dict(paged_cuda.launches_by_route)
+    if paged_routes != {r: counts["paged_attention"] * (r == "split")
+                        for r in paged_routes}:
+        raise SystemExit(f"paged decode routes {paged_routes}, want every "
+                         "launch on the split route")
     p = torch.stack(paged_logits)
     err, same, n_tok, gap = near_tie(torch.stack(dense_logits), p)
     log(f"main path {cfg.name} L{cfg.num_layers} d{cfg.d_model}: prefill "
         f"{B}x{S} {prefill_s * 1e3:.3f} ms, dense decode {dense_s * 1e3:.3f} "
         f"ms/step, paged decode {paged_s * 1e3:.3f} ms/step, launches {counts}, "
-        f"prefill flash routes {prefill_counts['flash_attention routes']}")
+        f"prefill flash routes {prefill_counts['flash_attention routes']}, "
+        f"paged decode routes {paged_routes}")
     log(f"paged vs dense decode logits over {steps} steps: max|err| {err:.4f} "
         f"(tol {TOL_PAGED_LOGITS}); greedy tokens equal {same}/{n_tok}, "
         f"largest dense-logit gap where they differ {gap:.4f}")
@@ -602,8 +694,8 @@ def profile_steps(label: str, step, t0: int, n: int) -> None:
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
-    launches = sum(e.count for e in events
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx")) / n
+    launches = sum(e.count for e in events  # cudaLaunchKernelExC: clusters
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))) / n
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
     ours = [(name, sum(e.self_device_time_total for e in es) / 1e3 / n,
              sum(e.count for e in es) / n) for name in PORT_KERNELS
@@ -718,7 +810,8 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     report = _build.build(["flash_attention", "flash_attention_wgmma",
-                           "paged_attention", "gla_scan", "gla_scan_mma"])
+                           "paged_attention", "paged_attention_split",
+                           "gla_scan", "gla_scan_mma"])
     log(f"build: {time.perf_counter() - t0:.1f} s wall into {_build.BUILD_DIR} "
         + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in report.items()))
     for k, v in report.items():
@@ -787,18 +880,17 @@ def main() -> int:
 
     entries = []
     # name, timed row, main-path launches, source, TPU kernel.  The kernel
-    # route is the one the timed case was asserted to take; paged attention
-    # has one kernel and no route.
+    # route is the one the timed case was asserted to take.
     for kname, row, launches, source, line in (
             ("flash_attention", flash, tiny_counts["flash_attention"],
              "flash_attention_wgmma", "src/repro/kernels/flash_attention/kernel.py:96"),
             ("paged_attention", paged_row, tiny_counts["paged_attention"],
-             "paged_attention", "src/repro/kernels/paged_attention/kernel.py:84"),
+             "paged_attention_split", "src/repro/kernels/paged_attention/kernel.py:84"),
             ("gla_scan", gla_row, counts["rwkv6_7b"]["gla_scan"],
              "gla_scan_mma", "src/repro/kernels/ssm_scan/kernel.py:76")):
         entries.append({
             "name": kname, "route": "cuda",
-            "kernel_route": row["route"][0] if "route" in row else None,
+            "kernel_route": row["route"][0],
             "source": f"src/repro_torch/csrc/{source}.cu", "replaces": line,
             "launches": launches, "max_abs_err": row["err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with nvcc and load them through ctypes.
+"""Build the port's CUDA kernels with nvcc and load them through ctypes,
+and the checks every kernel wrapper shares around a launch.
 
 Each ``csrc/<name>.cu`` is compiled on its own for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
@@ -16,6 +17,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -94,3 +97,14 @@ def check(name: str, code: int) -> None:
     if code != 0:
         msg = _libs[name].repro_cuda_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would record a call: the kernels have no backward
+    yet, and an output filled through ctypes carries no history, so the
+    gradient would be dropped in silence."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors if t.is_floating_point()):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward yet; call it under "
+            "torch.no_grad() or torch.inference_mode(), or detach the inputs")

@@ -14,7 +14,8 @@ kernel.py).  The route is a rule on the dtype, not a fallback:
 Both keep the fp32 online softmax with the finite mask value -1e30, skip
 key tiles wholly masked by the causal frontier or the window, and take
 ragged ``Sq`` and ``Sk``.  Any other dtype or head dim raises before a
-library is built or loaded.  No backward yet.
+library is built or loaded.  No backward yet: a call that autograd would
+record raises.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          q_offset: int | None = None,
                          scale: float | None = None):
     """q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D), on the card."""
+    _build.refuse_grad("flash_attention_cuda", q, k, v)
     B, Sq, Hq, D = q.shape
     Bk, Sk, Hkv, Dk = k.shape
     kind = route(q.dtype, D)

@@ -1,31 +1,69 @@
-"""Hand-written CUDA paged decode attention (``csrc/paged_attention.cu``).
+"""Hand-written CUDA paged decode attention: two routes by a rule of dtype,
+shape and alignment.
 
 Replaces ``paged_attention_pallas`` (src/repro/kernels/paged_attention/
-kernel.py).  The kernel is bound by bytes: one block per (sequence, kv head)
-walks the block table, reads each physical page it needs once, and serves
-all G query heads of that kv head from the staged copy, with the online
-softmax in fp32.  It stops at ``ceil(seq_len / page)`` and writes zeros for
-``seq_len == 0``, as the Pallas kernel does.
+kernel.py).  Both routes walk the block table, read each physical page they
+need once for all G query heads of its kv head, run the online softmax in
+fp32, stop at ``ceil(seq_len / page)`` and write zeros for ``seq_len == 0``,
+as the Pallas kernel does:
 
-Block-table entries and ``seq_lens`` are read on the device and are not
-checked here (that would need a sync): entries must lie in ``[0, P)``.
+  * ``split`` (``csrc/paged_attention_split.cu``) takes bf16 and fp32 calls
+    with D in ``SPLIT_DIMS``, G = Hq / Hkv in 1..``MAX_G``, a page that is a
+    multiple of ``PAGE_MULTIPLE`` positions and 16-byte aligned q and pools
+    -- what the dense models' paged decode runs.  Each sequence's pages are
+    split over the C = min(max_pages, 8) blocks of a thread-block cluster,
+    rows come in with 16-byte cp.async copies, bf16 products run on the
+    tensor cores (mma.sync) and fp32 ones on CUDA cores, and the blocks'
+    partial softmaxes are combined through distributed shared memory in the
+    same launch;
+  * ``simt`` (``csrc/paged_attention.cu``) takes every other call: one block
+    per (sequence, kv head) stages each page in shared memory.
+
+A route is never chosen because a build or a launch failed.  Block-table
+entries and ``seq_lens`` are read on the device and are not checked here
+(that would need a sync): entries must lie in ``[0, P)``.  No backward
+yet: a call that autograd would record raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels import _build
 
+SPLIT_DIMS = (64, 128)      # the head dims the split source compiles
+MAX_G = 9                   # query heads per kv head it compiles, 1..9
+PAGE_MULTIPLE = 16          # a warp step reads 8 or 16 positions of one page
+# route -> (library, C entry point); both take the same arguments
+_LIBS = {
+    "split": ("paged_attention_split", "paged_attention_split_launch"),
+    "simt": ("paged_attention", "paged_attention_launch"),
+}
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_split_ready: set[int] = set()   # devices whose shared-memory limit is set
+
+
+def route(dtype: torch.dtype, G: int, D: int, page: int, alignment: int) -> str:
+    """The kernel a call takes, ``"split"`` or ``"simt"``, from the dtype,
+    the query heads per kv head ``G``, the head dim ``D``, the page size
+    and ``alignment``, the bytes that divide the addresses of q and both
+    pools.  Raises TypeError for a dtype neither kernel takes."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"paged_attention_cuda: dtype {dtype} not in (float32, bfloat16)")
+    if (D in SPLIT_DIMS and 1 <= G <= MAX_G and page % PAGE_MULTIPLE == 0
+            and alignment % 16 == 0):
+        return "split"
+    return "simt"
 
 
 def paged_attention_cuda(q, k_pages, v_pages, block_table, seq_lens,
                          scale: float | None = None):
     """q: (B, Hq, D); pools: (P, page, Hkv, D) -> (B, Hq, D), on the card."""
+    _build.refuse_grad("paged_attention_cuda", q, k_pages, v_pages)
     B, Hq, D = q.shape
     P, page, Hkv, Dk = k_pages.shape
     tensors = (q, k_pages, v_pages, block_table, seq_lens)
@@ -46,21 +84,30 @@ def paged_attention_cuda(q, k_pages, v_pages, block_table, seq_lens,
             f"{tuple(block_table.shape)}, seq_lens {tuple(seq_lens.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention_cuda: inputs must be contiguous")
+    kind = route(q.dtype, Hq // Hkv, D, page,
+                 math.gcd(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()))
     if scale is None:
         scale = D ** -0.5
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = _build.function("paged_attention", "paged_attention_launch", _ARGTYPES)
+    lib, symbol = _LIBS[kind]
+    fn = _build.function(lib, symbol, _ARGTYPES)
     with torch.cuda.device(q.device):
+        if kind == "split" and q.device.index not in _split_ready:
+            setup = _build.function(lib, "paged_attention_split_setup", [])
+            _build.check(lib, setup())
+            _split_ready.add(q.device.index)
         code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                   block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
                   B, Hq, Hkv, D, page, block_table.shape[1], float(scale),
                   int(q.dtype == torch.bfloat16),
                   torch.cuda.current_stream().cuda_stream)
-    _build.check("paged_attention", code)
+    _build.check(lib, code)
     paged_attention_cuda.launches += 1
+    paged_attention_cuda.launches_by_route[kind] += 1
     return out
 
 
 paged_attention_cuda.launches = 0
+paged_attention_cuda.launches_by_route = {"split": 0, "simt": 0}

@@ -21,7 +21,7 @@ w (Mamba2's one decay per head), which they then read once per position:
 A route is never chosen because a build or a launch failed; a call that
 neither kernel takes raises before a library is built or loaded.  At the
 prefill shape the kernels' bound is the bytes they must move; see the
-source notes.
+source notes.  No backward yet: a call that autograd would record raises.
 """
 
 from __future__ import annotations
@@ -79,6 +79,7 @@ def route(q, k, v, w, chunk: int = 128) -> str:
 def gla_scan_cuda(q, k, v, w, chunk: int = 128):
     """q, k, w: (B, H, S, K); v: (B, H, S, V) -> (o (B, H, S, V) in q's
     dtype, final state (B, H, K, V) fp32), on the card, from a zero state."""
+    _build.refuse_grad("gla_scan_cuda", q, k, v, w)
     kind = route(q, k, v, w, chunk)
     B, H, S, K = q.shape
     V = v.shape[-1]

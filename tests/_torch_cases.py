@@ -23,6 +23,23 @@ PA_CASES = [
     (3, 16, 8, 128, 32, 32, 3),
     (2, 4, 1, 64, 8, 64, 2),
 ]
+# Hq, Hkv, D, pool_pages, page, max_pages, seq_lens: calls of the split
+# paged route (D 64 or 128, G = Hq / Hkv in 1..9, page a multiple of 16), at
+# the G of the configs the paged path serves or will serve (Zamba2 1,
+# granite 3, qwen2.5 5, TinyLlama 8, starcoder2 9).  The lengths straddle
+# the page and split boundaries (C = min(max_pages, 8) ranks take pages
+# r, r + C, ...): 1, page - 1, page, page + 1, C * page +- 1 and
+# max_pages * page; the last case's table is wider than the pages used, so
+# most ranks have no page.
+PA_SPLIT_CASES = [
+    (8, 8, 64, 40, 16, 8, (1, 15, 16, 17, 128)),
+    (6, 2, 128, 40, 16, 12, (127, 128, 129, 192)),
+    (20, 4, 128, 12, 128, 4, (512, 129, 1)),
+    (32, 4, 64, 24, 128, 8, (1024, 513, 127)),
+    (36, 4, 128, 48, 16, 10, (160, 129, 33, 8)),
+    (36, 4, 64, 12, 128, 3, (384, 200)),
+    (32, 4, 64, 64, 16, 32, (17, 16, 3)),
+]
 # B, H, S, K, V, chunk  (GLA_CASES of tests/test_kernels.py)
 GLA_CASES = [
     (2, 4, 128, 64, 64, 32),
@@ -71,6 +88,19 @@ def pa_inputs(case, seed=2):
     sl = np.asarray([maxp * page - 3] + [(maxp - 1) * page - 1] * (B - 1),
                     np.int32)[:B]
     return q, kp, vp, bt, sl
+
+
+def pa_split_inputs(case, seed=5):
+    """q, k/v pools, a random block table with distinct pages per sequence
+    and the case's seq_lens."""
+    Hq, Hkv, D, P, page, maxp, lens = case
+    B = len(lens)
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Hq, D), np.float32)
+    kp = rng.standard_normal((P, page, Hkv, D), np.float32)
+    vp = rng.standard_normal((P, page, Hkv, D), np.float32)
+    bt = np.stack([rng.permutation(P)[:maxp] for _ in range(B)]).astype(np.int32)
+    return q, kp, vp, bt, np.asarray(lens, np.int32)
 
 
 def gla_inputs(case, seed=4):

@@ -46,3 +46,24 @@ def test_unsupported_call_raises_before_any_library(dtype, head_dim, error,
 
 def test_route_counters_cover_every_route():
     assert set(K.flash_attention_cuda.launches_by_route) == set(K._LIBS)
+
+
+def test_autograd_guard_raises_before_the_device_check(monkeypatch):
+    """The kernels have no backward: a call autograd would record raises
+    before the device check, so a CPU tensor shows it; under no_grad or
+    inference_mode the same call passes the guard and meets the device
+    check.  No library is built or loaded either way."""
+    def no_build(*args, **kwargs):
+        raise AssertionError("a kernel library was requested")
+
+    monkeypatch.setattr(_build, "function", no_build)
+    monkeypatch.setattr(_build, "build", no_build)
+    q = torch.zeros(1, 8, 2, 64, requires_grad=True)
+    k = torch.zeros(1, 8, 2, 64)
+    with pytest.raises(RuntimeError, match="no backward"):
+        K.flash_attention_cuda(q, k, k)
+    with pytest.raises(RuntimeError, match="no backward"):
+        K.flash_attention_cuda(k, k, k.clone().requires_grad_())
+    for context in (torch.no_grad, torch.inference_mode):
+        with context(), pytest.raises(ValueError, match="CUDA device"):
+            K.flash_attention_cuda(q, k, k)

@@ -202,3 +202,23 @@ def test_unsplit_keys_put_the_state_outside_its_tolerance(decay):
     _, unsplit = mma_emulation(q, k, v, w, 128, split_keys=False)
     assert torch.allclose(split, rs, atol=TOL_STATE, rtol=TOL_STATE)
     assert not torch.allclose(unsplit, rs, atol=TOL_STATE, rtol=TOL_STATE)
+
+
+def test_autograd_guard_raises_before_the_device_check(monkeypatch):
+    """The kernels have no backward: a call autograd would record raises
+    before the device check (for q, k, v or w), so a CPU tensor shows it;
+    under no_grad or inference_mode the same call passes the guard and
+    meets the device check.  No library is built or loaded either way."""
+    def no_build(*args, **kwargs):
+        raise AssertionError("a kernel library was requested")
+
+    monkeypatch.setattr(_build, "function", no_build)
+    monkeypatch.setattr(_build, "build", no_build)
+    for i in range(4):
+        args = list(_qkvw(S=64))
+        args[i] = args[i].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="no backward"):
+            K.gla_scan_cuda(*args, 64)
+        for context in (torch.no_grad, torch.inference_mode):
+            with context(), pytest.raises(ValueError, match="CUDA device"):
+                K.gla_scan_cuda(*args, 64)

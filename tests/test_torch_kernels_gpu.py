@@ -14,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (FA_CASES, GLA_CASES, GLA_MMA_CASES, PA_CASES, TOL,
-                          fa_inputs, gla_inputs, gla_mma_inputs, pa_inputs)
+from _torch_cases import (FA_CASES, GLA_CASES, GLA_MMA_CASES, PA_CASES,
+                          PA_SPLIT_CASES, TOL, fa_inputs, gla_inputs,
+                          gla_mma_inputs, pa_inputs, pa_split_inputs)
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
@@ -129,6 +130,77 @@ def test_paged_attention_cuda_zero_length_gives_zeros(cuda_device):
                                torch.zeros(q.shape[0], dtype=torch.int32,
                                            device=cuda_device))
     assert torch.count_nonzero(out).item() == 0
+
+
+def _paged_routed(want, *args, **kw):
+    """paged_attention_cuda, with the launch counted on route ``want``
+    alone."""
+    before = dict(paged_attention_cuda.launches_by_route)
+    out = paged_attention_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    after = paged_attention_cuda.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == want) for r in after}
+    return out
+
+
+def _split_on(case, device, dtype):
+    q, kp, vp, bt, sl = pa_split_inputs(case)
+    return (*(_on(a, device, dtype) for a in (q, kp, vp)), _on(bt, device),
+            _on(sl, device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PA_SPLIT_CASES)
+def test_paged_attention_cuda_split_route_matches_plain(case, dtype,
+                                                        cuda_device):
+    """The cluster-split kernel at G 1, 3, 5, 8, 9, D 64 and 128, pages 16
+    and 128, with lengths on both sides of the page and split boundaries
+    (1, page +- 1, C * page +- 1, max_pages * page) and a table wider than
+    the pages used."""
+    args = _split_on(case, cuda_device, dtype)
+    out = _paged_routed("split", *args)
+    ref = paged_attention_ref(*args)
+    assert out.dtype == args[0].dtype and out.shape == args[0].shape
+    np.testing.assert_allclose(_np(out), _np(ref), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_cuda_split_never_reads_unused_table_entries(
+        dtype, cuda_device):
+    """Entries past ceil(seq_len / page) poisoned with -1 and P + 7 give the
+    same output as the clean table: they are never read."""
+    q, kp, vp, bt, sl = _split_on(PA_SPLIT_CASES[6], cuda_device, dtype)
+    page, P = kp.shape[1], kp.shape[0]
+    used = (sl + page - 1) // page
+    past = torch.arange(bt.shape[1], device=cuda_device)[None, :] >= used[:, None]
+    poisoned = bt.clone()
+    poisoned[past] = torch.where(
+        torch.arange(int(past.sum()), device=cuda_device) % 2 == 0, -1, P + 7
+    ).int()
+    assert (poisoned != bt).any()
+    clean = _paged_routed("split", q, kp, vp, bt, sl)
+    out = _paged_routed("split", q, kp, vp, poisoned, sl)
+    assert torch.equal(out, clean)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_cuda_split_zero_length_gives_zeros(dtype,
+                                                            cuda_device):
+    """seq_len == 0 on the split route: zeros for that sequence, as the
+    Pallas kernel; the others as the plain version."""
+    q, kp, vp, bt, sl = _split_on(PA_SPLIT_CASES[3], cuda_device, dtype)
+    sl[1] = 0
+    out = _paged_routed("split", q, kp, vp, bt, sl)
+    assert torch.count_nonzero(out[1]).item() == 0
+    keep = torch.tensor([0, 2], device=cuda_device)
+    ref = paged_attention_ref(q[keep], kp, vp, bt[keep], sl[keep])
+    np.testing.assert_allclose(_np(out[keep]), _np(ref), atol=TOL[dtype],
+                               rtol=TOL[dtype])
 
 
 # ---------------------------------------------------------------------------
