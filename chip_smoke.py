@@ -16,23 +16,30 @@ Phases, each of which exits non-zero on failure:
      and gla_scan on both routes (bf16 on the tensor cores, fp32 and the
      shapes the tensor-core gla_scan does not take on CUDA cores); paged
      on its cluster-split route at the decode shape and at a long context
-     (up to 32768 positions), beside the CUDA-core kernel it replaced, and
-     the host time of one paged wrapper call; then
+     (up to 32768 positions), beside the CUDA-core kernel it replaced; the
+     host time of one wrapper call of each kernel at its main-path shape;
+     then
      reduced TinyLlama, RWKV6 and Zamba2 models on the card (the kernels)
      held against the CPU path (their plain versions) in fp32;
   4. the TinyLlama path: full-width TinyLlama (random weights from the
      seed) -- prefill of 8 x 512 tokens through the bf16 flash kernel, dense
      decode, then paged decode through the paged kernel (every launch on
      the split route) from a pool laid out under a shuffled block table,
-     held against the dense decode;
-  5. BatchScheduler serving 16 requests over 4 slots at full width;
+     held against the dense decode; then both decode steps captured in CUDA
+     graphs (serve.engine.DecodeGraph) and replayed over the same steps from
+     the same cache, their logits equal to the eager ones bit for bit;
+  5. BatchScheduler serving 16 requests over 4 slots at full width, with
+     its decode step captured (the default on a card) and eager, the same
+     tokens from both;
   6. PagedKVEngine: real K pages of the card's pool spill to the DDS page
      store (host path) and come back bit-exact through the DPU offload path;
   7. rwkv6_7b at full width and depth: prefill of 8 x 512 tokens (one
      gla_scan launch per layer, each on the tensor-core route), 8 decode
      steps through the recurrence,
      each held against the last logits of a prefill of the longer prompt,
-     then BatchScheduler serving;
+     the same steps replayed from a CUDA graph (the new state copied into
+     the captured buffers), then BatchScheduler serving, captured and
+     eager;
   8. zamba2_1p2b at full width and depth: the same, with the shared
      attention block through the flash kernel once per group.
 The second-to-last line is a JSON object with one entry per kernel; the
@@ -193,12 +200,13 @@ def check_flash(gen, timer) -> dict:
              (8, 512, 512, 32, 4, 64, True, None, fp32, False)]
     tol = {bf16: TOL_BF16, fp32: TOL_FP32}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows = []
+    rows, first = [], None
     for B, Sq, Sk, Hq, Hkv, D, causal, window, dtype, time_sdpa in cases:
         q = torch.randn(B, Sq, Hq, D, generator=gen, device="cuda").to(dtype)
         k = torch.randn(B, Sk, Hkv, D, generator=gen, device="cuda").to(dtype)
         v = torch.randn(B, Sk, Hkv, D, generator=gen, device="cuda").to(dtype)
         kw = dict(causal=causal, window=window, q_offset=0 if causal else None)
+        first = first or (q, k, v, kw)
         before = dict(flash_attention_cuda.launches_by_route)
         out = flash_attention_cuda(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -231,6 +239,11 @@ def check_flash(gen, timer) -> dict:
             f"{row['plain_ms']:.4f} ms library {row['library_ms']} ms bound "
             f"{bnd:.4f} ms ({by})")
         rows.append(row)
+    q, k, v, kw = first
+    log(f"flash wrapper host time "
+        f"{host_us(lambda: flash_attention_cuda(q, k, v, **kw)):.2f} us a call "
+        f"at {rows[0]['case']} (checks, route, ctypes call, tensor maps and "
+        "launch; median of 5 x 200 calls)")
     if not all(r["ok"] for r in rows):
         raise SystemExit("flash_attention kernel disagrees with its plain "
                          "version or took the wrong route")
@@ -429,7 +442,7 @@ def check_gla(gen, timer) -> dict:
              (8, 64, 512, 64, 64, bf16, "rwkv6", 120, "simt"),
              (8, 64, 512, 64, 64, fp32, "rwkv6", 128, "simt"),
              (8, 64, 512, 64, 64, fp32, "strong", 128, "simt")]
-    rows = []
+    rows, first = [], None
     for B, H, S, K, V, dtype, decay, chunk, want_route in cases:
         def randn(*shape):
             return torch.randn(*shape, generator=gen, device="cuda")
@@ -441,6 +454,7 @@ def check_gla(gen, timer) -> dict:
             w = torch.full((B, H, S, K), -2.5, device="cuda")
         else:
             w = -0.05 * torch.exp(randn(B, H, S, K))
+        first = first or (q, k, v, w, chunk)
         before = dict(gla_scan_cuda.launches_by_route)
         o, st = gla_scan_cuda(q, k, v, w, chunk)
         torch.cuda.synchronize()
@@ -470,6 +484,10 @@ def check_gla(gen, timer) -> dict:
             f"plain {row['plain_ms']:.4f} ms bound {bnd:.4f} ms ({by}){extra}; "
             "no single PyTorch call computes a gated linear-attention scan")
         rows.append(row)
+    log(f"gla_scan wrapper host time "
+        f"{host_us(lambda: gla_scan_cuda(*first)):.2f} us a call at "
+        f"{rows[0]['case']} (checks, route, outputs, ctypes call and launch; "
+        "median of 5 x 200 calls)")
     if not all(r["ok"] for r in rows):
         raise SystemExit("gla_scan kernel disagrees with its plain version "
                          "or took the wrong route")
@@ -555,9 +573,57 @@ def check_reduced_ssm_against_cpu(arch: str, seed: int) -> None:
         raise SystemExit(f"reduced {arch} on the card disagrees with the CPU path")
 
 
+def graph_decode(label, step, params, state0, tokens, t0, eager_logits):
+    """Capture ``step`` in a DecodeGraph on a clone of ``state0`` and replay
+    the steps from ``t0`` that gave ``eager_logits``, twice (the second
+    time timed, from ``state0`` copied back into the captured buffers):
+    every replayed logit must equal the eager one bit for bit, since the
+    same kernels run in the same order on the same inputs.  Returns the
+    graph, its state, ms a step, the first call's seconds (warm-up,
+    capture and one replay) and the paged launches that call counted by
+    route (replays count none, which is checked)."""
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_cuda as paged_cuda)
+    from repro_torch.serve.engine import DecodeGraph, tree_clone, tree_leaves
+
+    dev, n = tokens.device, len(eager_logits)
+    static = tree_clone(state0)
+    g = DecodeGraph(step, params, static)
+    routes0 = dict(paged_cuda.launches_by_route)
+    worst, ms = 0.0, None
+    for rnd in range(2):
+        for dst, src in zip(tree_leaves(static), tree_leaves(state0)):
+            if isinstance(dst, torch.Tensor):
+                dst.copy_(src)
+        sync(dev)
+        t_start = time.perf_counter()
+        got = []
+        for i, t in enumerate(range(t0, t0 + n)):
+            lg, _ = g(params, static, t, tokens[:, t:t + 1])
+            got.append(lg.float())
+            if rnd == 0 and i == 0:
+                sync(dev)
+                first_s = time.perf_counter() - t_start
+                captured = {r: c - routes0[r]
+                            for r, c in paged_cuda.launches_by_route.items()}
+        sync(dev)
+        if rnd == 1:
+            ms = (time.perf_counter() - t_start) / n * 1e3
+        worst = max(worst, max(max_err(a, b) for a, b in zip(got, eager_logits)))
+        if not all(torch.equal(a, b) for a, b in zip(got, eager_logits)):
+            raise SystemExit(f"{label}: replayed logits differ from the eager "
+                             f"ones (max|err| {worst:.3e})")
+    after = {r: c - routes0[r] for r, c in paged_cuda.launches_by_route.items()}
+    if after != captured:
+        raise SystemExit(f"{label}: replays counted paged launches {after}, "
+                         f"{captured} at capture")
+    return g, static, ms, first_s, captured
+
+
 def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
               cache_len=1024, steps=8, page=128) -> dict:
     from repro_torch.models import transformer as TF
+    from repro_torch.serve.engine import DecodeGraph, tree_clone
 
     cfg, dev = api.cfg, api.device
     tokens = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=gen,
@@ -571,6 +637,7 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
                                        device=dev)
         perm = torch.randperm(B * cache_len // page, generator=gen, device=dev)
         fill_paged_pool(cache, paged, perm)
+        cache0, paged0 = tree_clone(cache), tree_clone(paged)
 
         dense_logits, paged_logits = [], []
         sync(dev)
@@ -610,6 +677,33 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
     if not (torch.isfinite(p).all() and err <= TOL_PAGED_LOGITS
             and gap <= TOL_PAGED_LOGITS):
         raise SystemExit("paged decode disagrees with dense decode")
+    flash0 = flash_cuda.launches
+
+    def paged_step(p_, c_, n_, t_):
+        return TF.lm_decode_step_paged(p_, cfg, c_, n_, t_)
+
+    with torch.inference_mode():
+        g_dense, cache_g, dense_g_ms, dense_first, _ = graph_decode(
+            "dense decode graph", api.decode_step, params, cache0, tokens, S,
+            dense_logits)
+        g_paged, paged_g, paged_g_ms, paged_first, captured = graph_decode(
+            "paged decode graph", paged_step, params, paged0, tokens, S,
+            paged_logits)
+    want = cfg.num_layers * (DecodeGraph.WARMUP + 1)
+    if (captured != {r: want * (r == "split") for r in captured}
+            or flash_cuda.launches != flash0):
+        raise SystemExit(f"paged decode graph: first call launched paged "
+                         f"{captured}, want {want} on split; flash "
+                         f"{flash_cuda.launches - flash0}, want 0")
+    log(f"decode graphs {cfg.name} B {B}, {steps} steps from position {S}: "
+        f"dense eager {dense_s * 1e3:.3f} ms/step, graph {dense_g_ms:.3f} "
+        f"ms/step (first call {dense_first * 1e3:.1f} ms: {DecodeGraph.WARMUP} "
+        f"warm-up steps on clones, capture, replay); paged eager "
+        f"{paged_s * 1e3:.3f} ms/step, graph {paged_g_ms:.3f} ms/step (first "
+        f"call {paged_first * 1e3:.1f} ms); replayed logits equal to the eager "
+        f"ones bit for bit, twice over; paged launches counted at the first "
+        f"call {captured} ({cfg.num_layers} captured, the rest warm-up), none "
+        "on replays")
     if dev.type == "cuda":
         with torch.inference_mode():
             for label, step in (
@@ -618,8 +712,13 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
                     ("dense decode", lambda t: api.decode_step(
                         params, cache, t, tokens[:, t:t + 1])),
                     ("paged decode", lambda t: TF.lm_decode_step_paged(
-                        params, cfg, paged, t, tokens[:, t:t + 1]))):
-                profile_steps(label, step, S + steps - 2, 2)
+                        params, cfg, paged, t, tokens[:, t:t + 1])),
+                    ("dense decode graph", lambda t: g_dense(
+                        params, cache_g, t, tokens[:, t:t + 1])),
+                    ("paged decode graph", lambda t: g_paged(
+                        params, paged_g, t, tokens[:, t:t + 1]))):
+                profile_steps(label, step, S + steps - 2, 2,
+                              None if label == "prefill" else weights_ms(params))
     return {"counts": counts, "paged": paged}
 
 
@@ -629,6 +728,8 @@ def ssm_path(api, params, gen, gla_cuda, flash_cuda, B=8, S=512,
     held against the last logits of a prefill of the prompt it has seen
     (prefill(S) + n steps == prefill(S + n)): the kernel's final state
     carried on by the recurrence."""
+    from repro_torch.serve.engine import tree_clone
+
     cfg, dev = api.cfg, api.device
     n_groups = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
     want = {"gla_scan": cfg.num_layers, "flash_attention": n_groups}
@@ -642,6 +743,7 @@ def ssm_path(api, params, gen, gla_cuda, flash_cuda, B=8, S=512,
         _, state, prefill_s, counts = timed_prefill(
             api, params, tokens, S, cache_len,
             {"gla_scan": gla_cuda, "flash_attention": flash_cuda}, want)
+        state0 = tree_clone(state)
         decoded = []
         sync(dev)
         t0 = time.perf_counter()
@@ -652,13 +754,22 @@ def ssm_path(api, params, gen, gla_cuda, flash_cuda, B=8, S=512,
         decode_s = (time.perf_counter() - t0) / steps
         if gla_cuda.launches != want["gla_scan"]:
             raise SystemExit("decode launched the gla_scan kernel")
+        g, state_g, graph_ms, first_s, _ = graph_decode(
+            f"{cfg.name} decode graph", api.decode_step, params, state0,
+            tokens, S, decoded)
+        if (gla_cuda.launches, flash_cuda.launches) != (want["gla_scan"],
+                                                        want["flash_attention"]):
+            raise SystemExit(f"{cfg.name} decode graph launched a prefill kernel")
         full = [prefill(S + n)[0].float() for n in range(1, steps + 1)]
     d = torch.stack(decoded)
     err, same, n_tok, gap = near_tie(torch.stack(full), d)
     tol = TOL_CONT_LOGITS[cfg.name]
     log(f"{cfg.name} L{cfg.num_layers} d{cfg.d_model}: prefill {B}x{S} "
-        f"{prefill_s * 1e3:.3f} ms, decode {decode_s * 1e3:.3f} ms/step, "
-        f"prefill launches {counts}")
+        f"{prefill_s * 1e3:.3f} ms, decode eager {decode_s * 1e3:.3f} ms/step, "
+        f"graph {graph_ms:.3f} ms/step (first call {first_s * 1e3:.1f} ms: "
+        f"warm-up on clones, capture, replay; the new state copied into the "
+        f"captured buffers; replayed logits equal to the eager ones bit for "
+        f"bit, twice over), prefill launches {counts}")
     log(f"{cfg.name} prefill({S}) + n decode steps vs prefill({S}+n), n = 1.."
         f"{steps}: max|err| {err:.4f} (tol {tol}); greedy tokens equal "
         f"{same}/{n_tok}, largest prefill-logit gap where they differ "
@@ -669,15 +780,30 @@ def ssm_path(api, params, gen, gla_cuda, flash_cuda, B=8, S=512,
         with torch.inference_mode():
             profile_steps(f"{cfg.name} prefill", lambda t: prefill(S), 0, 2)
             profile_steps(f"{cfg.name} decode", lambda t: api.decode_step(
-                params, state, t, tokens[:, t:t + 1]), S + steps - 2, 2)
+                params, state, t, tokens[:, t:t + 1]), S + steps - 2, 2,
+                weights_ms(params))
+            profile_steps(f"{cfg.name} decode graph", lambda t: g(
+                params, state_g, t, tokens[:, t:t + 1]), S + steps - 2, 2,
+                weights_ms(params))
     return counts
 
 
-def profile_steps(label: str, step, t0: int, n: int) -> None:
+def weights_ms(params) -> float:
+    """A lower bound on a decode step's time in ms: its weights read once
+    over the card's memory rate (the cache it also reads is left out)."""
+    from repro_torch.serve.engine import tree_leaves
+
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(params)) / H100_BYTES_PER_S * 1e3
+
+
+def profile_steps(label: str, step, t0: int, n: int,
+                  bound: float | None = None) -> None:
     """Device busy share and kernel launches of ``n`` steps, from a
-    torch.profiler trace (the positions rewrite what the steps wrote).
-    Busy time sums the device's own events only: a CPU op's self device
-    time repeats that of the kernels it launched."""
+    torch.profiler trace (the positions rewrite what the steps wrote),
+    beside ``bound``, a lower bound on the step's time in ms, where given.  Busy time sums
+    the device's own events only: a CPU op's self device time repeats that
+    of the kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -696,13 +822,20 @@ def profile_steps(label: str, step, t0: int, n: int) -> None:
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     launches = sum(e.count for e in events  # cudaLaunchKernelExC: clusters
                    if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))) / n
+    graphs = sum(e.count for e in events
+                 if e.key.startswith(("cudaGraphLaunch", "cuGraphLaunch"))) / n
+    kernel_count = sum(e.count for e in kernels) / n
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
     ours = [(name, sum(e.self_device_time_total for e in es) / 1e3 / n,
              sum(e.count for e in es) / n) for name in PORT_KERNELS
             if (es := [e for e in kernels
                        if re.search(rf"::{name}[<(]", e.key)])]
     log(f"{label} step: wall {wall:.3f} ms, device busy {busy:.3f} ms "
-        f"(idle {100 * (1 - busy / wall):.1f}%), {launches:.0f} launches; top: "
+        f"(idle {100 * (1 - busy / wall):.1f}%), {launches:.0f} kernel launches, "
+        f"{graphs:.0f} graph launches, {kernel_count:.0f} device events"
+        + ("" if bound is None else
+           f"; weights read once {bound:.3f} ms ({busy / bound:.1f}x in busy time)")
+        + "; top: "
         + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / n:.3f} ms"
                     for e in top)
         + "; port kernels: " + ("; ".join(
@@ -716,28 +849,54 @@ def profile_steps(label: str, step, t0: int, n: int) -> None:
 
 
 def serve_batch(api, params, name: str, cache_len: int = 256) -> None:
-    from repro_torch.serve.engine import BatchScheduler, Request
+    """The same 16 requests through BatchScheduler twice in this call: with
+    its decode step captured (``DecodeGraph``, what it does on a card) and
+    with ``api.decode_step`` put in its place (eager).  Both must complete
+    every request with the same tokens."""
+    from repro_torch.serve.engine import BatchScheduler, DecodeGraph, Request
 
     n_req, slots, max_new = 16, 4, 16
-    sched = BatchScheduler(api, params, slots=slots, cache_len=cache_len)
-    rng = np.random.default_rng(0)
-    reqs = [Request(i, rng.integers(0, api.cfg.vocab_size, size=4),
-                    max_new=max_new) for i in range(n_req)]
-    for r in reqs:
-        sched.submit(r)
-    sync(api.device)
-    t0 = time.perf_counter()
-    done = steps = 0
-    while done < n_req and steps < 1000:
-        done += sched.step()
-        steps += 1
-    sync(api.device)
-    dt = time.perf_counter() - t0
-    if done != n_req or any(len(r.generated) != max_new for r in reqs):
-        raise SystemExit(f"BatchScheduler completed {done}/{n_req} requests")
+    runs = {}
+    for mode in ("graph", "eager"):
+        sched = BatchScheduler(api, params, slots=slots, cache_len=cache_len)
+        if not isinstance(sched._decode, DecodeGraph):
+            raise SystemExit("BatchScheduler on the card did not build a DecodeGraph")
+        if mode == "eager":
+            sched._decode = api.decode_step
+        rng = np.random.default_rng(0)
+        reqs = [Request(i, rng.integers(0, api.cfg.vocab_size, size=4),
+                        max_new=max_new) for i in range(n_req)]
+        for r in reqs:
+            sched.submit(r)
+        sync(api.device)
+        t0 = time.perf_counter()
+        done = sched.step()
+        sync(api.device)
+        first = time.perf_counter() - t0
+        steps = 1
+        while done < n_req and steps < 1000:
+            done += sched.step()
+            steps += 1
+        sync(api.device)
+        dt = time.perf_counter() - t0
+        if done != n_req or any(len(r.generated) != max_new for r in reqs):
+            raise SystemExit(f"BatchScheduler ({mode}) completed {done}/{n_req} "
+                             "requests")
+        runs[mode] = dict(tok_s=n_req * max_new / dt, ms=dt * 1e3 / steps,
+                          rest_ms=(dt - first) * 1e3 / (steps - 1),
+                          first_ms=first * 1e3, steps=steps,
+                          tokens=[r.generated for r in reqs])
+    same = runs["graph"]["tokens"] == runs["eager"]["tokens"]
     log(f"BatchScheduler: {n_req} requests x {max_new} tokens over {slots} "
-        f"slots in {steps} steps, {n_req * max_new / dt:.1f} tok/s "
-        f"({dt * 1e3 / steps:.3f} ms/step), {api.cfg.name} on {name}")
+        f"slots, {api.cfg.name} on {name}: "
+        + "; ".join(f"{m} {r['tok_s']:.1f} tok/s ({r['ms']:.3f} ms/step over "
+                    f"{r['steps']} steps; first step {r['first_ms']:.1f} ms, "
+                    f"the rest {r['rest_ms']:.3f} ms/step)"
+                    for m, r in runs.items())
+        + f"; generated tokens equal: {same}")
+    if not same:
+        raise SystemExit("BatchScheduler: captured and eager decode generated "
+                         "different tokens")
 
 
 def kv_paging(paged: dict, blocks: list[tuple[int, int]], hbm_blocks: int) -> dict:

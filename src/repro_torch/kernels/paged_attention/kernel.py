@@ -23,6 +23,17 @@ A route is never chosen because a build or a launch failed.  Block-table
 entries and ``seq_lens`` are read on the device and are not checked here
 (that would need a sync): entries must lie in ``[0, P)``.  No backward
 yet: a call that autograd would record raises.
+
+Under a CUDA graph (``serve.engine.DecodeGraph``): the wrapper launches on
+the current stream, reads no device value on the host and takes the
+cluster size from the table's shape, so a capture records it and a replay
+reads the table's and ``seq_lens``' current entries.  The library's build
+and load and ``paged_attention_split_setup`` run at the first call, which
+must come before the capture (the graph's warm-up).  ``launches`` and
+``launches_by_route`` count wrapper calls: a capture adds one a call, a
+replay none.  The simt launcher sets the kernel's shared-memory limit with
+``cudaFuncSetAttribute`` on every launch that needs more than 48 KB; that
+call is legal during a capture.
 """
 
 from __future__ import annotations

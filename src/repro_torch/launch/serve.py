@@ -3,7 +3,9 @@
 Stands up the continuous-batching scheduler for an architecture and serves
 synthetic requests, reporting decode throughput and the DDS KV-paging
 statistics when --paged is set.  Runs on the card unless ``--device cpu``;
-``--no-reduced`` serves the architecture at full width.
+``--no-reduced`` serves the architecture at full width.  On the card the
+decode step is captured in a CUDA graph and replayed; on the CPU it runs
+eagerly; the first line printed says which.
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ def main(argv: list[str] | None = None) -> None:
     params, _ = api.init(torch.Generator(device=device).manual_seed(0))
     sched = BatchScheduler(api, params, slots=args.slots,
                            cache_len=args.cache_len)
+    print("decode step: " + ("captured in a CUDA graph, replayed every step "
+                             f"({device.type})" if device.type == "cuda"
+                             else f"eager ({device.type})"))
     rng = np.random.default_rng(0)
     for rid in range(args.requests):
         sched.submit(Request(rid, rng.integers(0, cfg.vocab_size, size=4),

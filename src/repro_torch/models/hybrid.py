@@ -196,11 +196,12 @@ def hybrid_prefill(params, cfg: ModelConfig, tokens, cache_len=None,
 def hybrid_decode_step(params, cfg: ModelConfig, state, kv_len, token,
                        embeds=None):
     """Writes the new K/V rows into ``state``'s attention caches in place;
-    returns (logits (B, vocab), new state)."""
-    kv_len = int(kv_len)
+    returns (logits (B, vocab), new state).  ``kv_len`` is an int or a 0-d
+    int32 tensor, never read on the host."""
+    kv_len = L.kv_len_tensor(kv_len, token.device)
     B = token.shape[0]
     x = L.embed_fwd(params["embedding"], token)
-    pos = torch.full((B, 1), kv_len, device=token.device)
+    pos = kv_len.view(1, 1).expand(B, 1)
     sp = params["shared_attn"]
     convs, glas = [], []
     for g, grp in enumerate(_groups(params, cfg)):

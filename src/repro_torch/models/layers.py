@@ -291,24 +291,36 @@ def attention_fwd(params, x, cfg: AttnConfig, positions=None):
     return out @ params["wo"], (k, v)
 
 
+def kv_len_tensor(kv_len, device) -> torch.Tensor:
+    """``kv_len`` as a 0-d int32 tensor on ``device``: a tensor there
+    already is returned as it is, an int is filled in on the device (no
+    copy from the host)."""
+    if isinstance(kv_len, torch.Tensor):
+        return kv_len.to(device=device, dtype=torch.int32)
+    return torch.full((), kv_len, dtype=torch.int32, device=device)
+
+
 def attention_decode(params, x, cfg: AttnConfig, k_cache, v_cache,
-                     kv_len: int, positions):
+                     kv_len, positions):
     """One-token decode against a filled cache.
 
     x: (B, 1, D); k_cache/v_cache: (B, S_cache, KV, hd) where entries
-    [0, kv_len) are valid roped keys.  For sliding-window layers the cache
-    is a ring of size ``window`` (attention is permutation-invariant, so
-    ring order does not matter).  The new K/V row is written into the
-    caches in place; returns (out, k_cache, v_cache).
+    [0, kv_len) are valid roped keys.  ``kv_len`` is an int or a 0-d int32
+    tensor on the cache's device, as in the JAX package; nothing here reads
+    it on the host, so a CUDA graph can capture the step.  For
+    sliding-window layers the cache is a ring of size ``window`` (attention
+    is permutation-invariant, so ring order does not matter).  The new K/V
+    row is written into the caches in place; returns (out, k_cache,
+    v_cache).
     """
     B = x.shape[0]
     q, k_new, v_new = _qkv(params, x, cfg, positions)
     S_cache = k_cache.shape[1]
-    slot = kv_len % S_cache if cfg.window is not None else kv_len
-    slot = slot % S_cache
-    k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
-    valid = min(kv_len + 1, S_cache)
+    kv_len = kv_len_tensor(kv_len, k_cache.device)
+    slot = torch.remainder(kv_len, S_cache).long().view(1)
+    k_cache.index_copy_(1, slot, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot, v_new.to(v_cache.dtype))
+    valid = torch.clamp(kv_len + 1, max=S_cache)
     out = _decode_attend(q, k_cache, v_cache, valid, cfg)
     out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
     return out @ params["wo"], k_cache, v_cache

@@ -124,6 +124,9 @@ def rwkv_prefill(params, cfg: ModelConfig, tokens, embeds=None):
 
 def rwkv_decode_step(params, cfg: ModelConfig, state, kv_len, token,
                      embeds=None):
+    """One token through the recurrence; ``kv_len`` is unused (the state
+    carries the position), as in JAX.  Returns (logits (B, vocab), new
+    state); nothing is read on the host, so the step can be captured."""
     x = L.embed_fwd(params["embedding"], token)
     x, new_state = _run(params, cfg, x, state, decode=True)
     x = L.rms_norm(x, params["final_norm"])

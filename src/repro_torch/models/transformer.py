@@ -152,6 +152,7 @@ def _final(params, cfg, x):
 
 
 def _positions(cfg: ModelConfig, B: int, S: int, device, offset=0):
+    """(B, S) positions from ``offset``, an int or a 0-d tensor."""
     pos = (torch.arange(S, device=device)[None] + offset).expand(B, S)
     if cfg.mrope:
         return pos[..., None].expand(B, S, 3)
@@ -194,11 +195,12 @@ def lm_init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def lm_decode_step(params, cfg: ModelConfig, cache: dict, kv_len, token):
-    """token: (B, 1) int; kv_len: existing valid cache entries (int).
-    Writes the new K/V rows into ``cache`` in place.
+    """token: (B, 1) int; kv_len: existing valid cache entries, an int or a
+    0-d int32 tensor, never read on the host (the step can be captured in a
+    CUDA graph).  Writes the new K/V rows into ``cache`` in place.
     Returns (logits (B, vocab), cache)."""
     check_supported(cfg)
-    kv_len = int(kv_len)
+    kv_len = L.kv_len_tensor(kv_len, token.device)
     B = token.shape[0]
     x = L.embed_fwd(params["embedding"], token)
     pos = _positions(cfg, B, 1, token.device, offset=kv_len)
@@ -269,27 +271,31 @@ def lm_decode_step_paged(params, cfg: ModelConfig, cache: dict, kv_len,
     """One-token decode over the paged pool via the paged-attention op.
 
     kv_len: number of existing valid positions (uniform across the batch in
-    this entry point).  The new K/V rows are written into the pools in
-    place; returns (logits (B, vocab), cache)."""
+    this entry point), an int or a 0-d int32 tensor.  Everything that
+    depends on it (the page, the slot, ``seq_lens``) is computed on the
+    device, so the step can be captured in a CUDA graph; the block table's
+    entries may change between replays, its shape may not.  The new K/V
+    rows are written into the pools in place; returns (logits (B, vocab),
+    cache)."""
     check_supported(cfg)
-    kv_len = int(kv_len)
+    kv_len = L.kv_len_tensor(kv_len, token.device)
     B = token.shape[0]
     page = cache["page"]
     table = cache["block_table"]
     x = L.embed_fwd(params["embedding"], token)
     pos = _positions(cfg, B, 1, token.device, offset=kv_len)
     acfg = _attn_cfg(cfg)
-    phys = table[:, kv_len // page].long()            # (B,) physical pages
-    slot_off = kv_len % page
-    seq_lens = torch.full((B,), kv_len + 1, dtype=torch.int32,
-                          device=token.device)
+    col = torch.div(kv_len, page, rounding_mode="floor").long().view(1)
+    phys = table.index_select(1, col).view(B).long()  # (B,) physical pages
+    slot_off = torch.remainder(kv_len, page).long().expand(B)
+    seq_lens = (kv_len + 1).expand(B).contiguous()    # (B,) int32
     for i, blk in enumerate(L.layer_views(params["blocks"], cfg.num_layers)):
         k_pool, v_pool = cache["k_pool"][i], cache["v_pool"][i]
         h = _norm1(blk, cfg, x)
         q, k_new, v_new = L._qkv(blk["attn"], h, acfg, pos)
         # Write the new token's K/V into its page (translate-then-write).
-        k_pool[phys, slot_off] = k_new[:, 0].to(k_pool.dtype)
-        v_pool[phys, slot_off] = v_new[:, 0].to(v_pool.dtype)
+        k_pool.index_put_((phys, slot_off), k_new[:, 0].to(k_pool.dtype))
+        v_pool.index_put_((phys, slot_off), v_new[:, 0].to(v_pool.dtype))
         o = paged_attention(q[:, 0].contiguous(), k_pool, v_pool, table,
                             seq_lens)
         o = o.reshape(B, 1, cfg.num_heads * cfg.hd)

@@ -11,7 +11,9 @@ OFFLOAD path — cold, simple, read-only reads, exactly what the paper
 offloads — while writes (new KV blocks) take the host path.
 
 ``BatchScheduler`` is a minimal continuous-batching front: requests join or
-leave decode slots between steps.
+leave decode slots between steps.  On a card it replays its decode step
+from a CUDA graph (``DecodeGraph``, the port of the reference's
+``jax.jit(api.decode_step)``); on the CPU it calls the step eagerly.
 """
 
 from __future__ import annotations
@@ -127,6 +129,130 @@ class PagedKVEngine:
 
 
 # ---------------------------------------------------------------------------
+# The captured decode step.
+# ---------------------------------------------------------------------------
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a cache (dict, tuple or tensor), in order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_clone(tree):
+    """A copy of a cache (dict, tuple or tensor) with every tensor cloned."""
+    if isinstance(tree, dict):
+        return {k: tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_clone(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _signature(tree) -> tuple:
+    """What a graph holds fixed of a tree: each tensor's address, shape and
+    dtype, and every other leaf's value."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                 if isinstance(t, torch.Tensor) else t for t in tree_leaves(tree))
+
+
+def _cuda_device(cache) -> torch.device:
+    """The one CUDA device that holds every tensor of ``cache``; raises
+    for any other placement."""
+    devices = {t.device for t in tree_leaves(cache) if isinstance(t, torch.Tensor)}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"DecodeGraph needs a cache on one CUDA device, "
+                         f"not {sorted(map(str, devices))}")
+    return devices.pop()
+
+
+def write_back(step, params, cache, kv_len, token):
+    """One decode step that leaves its new state in ``cache``: the body a
+    ``DecodeGraph`` captures.  Runs on any device.
+
+    The dense and paged caches and the attention caches of the hybrid are
+    written in place by the step; every state tensor it returns new (the
+    RWKV6 tuple, the hybrid's Mamba carries) is copied into ``cache``'s.
+    Returns the logits.
+    """
+    logits, new = step(params, cache, kv_len, token)
+    for dst, src in zip(tree_leaves(cache), tree_leaves(new), strict=True):
+        if isinstance(dst, torch.Tensor) and src is not dst:
+            dst.copy_(src)
+    return logits
+
+
+class DecodeGraph:
+    """A decode step captured in a CUDA graph and replayed: the port of the
+    reference's ``jax.jit(api.decode_step)``.
+
+    Built on a step function ``(params, cache, kv_len, token) -> (logits,
+    cache)``, the params and the cache it serves; called like the step.
+    The first call captures ``write_back`` of the step into one graph for
+    this batch and cache; every call fills the static ``(B, 1)`` token and
+    0-d int32 ``kv_len`` buffers and replays it.  It returns the static
+    logits, which the next call overwrites (a caller that keeps them clones
+    them), and the cache, whose tensors hold the new state.
+
+    Before the capture the step runs a few times on a side stream on
+    clones of the cache: that builds and loads the kernels, sets their
+    launch attributes and sets up cuBLAS, none of which may happen inside a
+    capture, and leaves the cache as it was, so the first replay is the
+    first step.  Params or a cache other than the captured ones (another
+    tensor, shape or dtype at any leaf, or a token of another shape) raise:
+    a replay reads and writes the captured addresses only.  Kernel wrappers
+    count the launches of the warm-up and of the capture, never a
+    replay's.  Needs a CUDA device; on the CPU call the step itself.
+    """
+
+    WARMUP = 3
+
+    def __init__(self, step, params, cache):
+        self.step, self.params, self.cache = step, params, cache
+        self.device = _cuda_device(cache)
+        self._sig = (_signature(params), _signature(cache))
+        self.graph = None
+
+    @torch.inference_mode()
+    def __call__(self, params, cache, kv_len, token):
+        if (_signature(params), _signature(cache)) != self._sig:
+            raise ValueError("DecodeGraph called with params or a cache other "
+                             "than the ones it was built on")
+        if self.graph is None:
+            self._capture(token)
+        elif token.shape != self._token.shape:
+            raise ValueError(f"DecodeGraph captured tokens of shape "
+                             f"{tuple(self._token.shape)}, got {tuple(token.shape)}")
+        self._token.copy_(token)
+        if isinstance(kv_len, torch.Tensor):
+            self._kv_len.copy_(kv_len)
+        else:
+            self._kv_len.fill_(kv_len)
+        self.graph.replay()
+        return self.logits, self.cache
+
+    def _capture(self, token) -> None:
+        self._token = torch.zeros_like(token, device=self.device)
+        self._kv_len = torch.zeros((), dtype=torch.int32, device=self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            scratch = tree_clone(self.cache)
+            for _ in range(self.WARMUP):
+                write_back(self.step, self.params, scratch, self._kv_len,
+                           self._token)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        del scratch
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.logits = write_back(self.step, self.params, self.cache,
+                                     self._kv_len, self._token)
+        self.graph = graph
+
+
+# ---------------------------------------------------------------------------
 # Continuous batching (minimal).
 # ---------------------------------------------------------------------------
 
@@ -144,7 +270,10 @@ class BatchScheduler:
     """Slot-based continuous batching over a fixed decode batch.
 
     Keeps the reference's behaviour exactly: one ``kv_len`` is shared by
-    all slots, only ``prompt[-1]`` is fed, and there is no prefill.
+    all slots, only ``prompt[-1]`` is fed, and there is no prefill.  As the
+    reference compiles its step once (``jax.jit``), ``self._decode`` is a
+    ``DecodeGraph`` over ``api.decode_step``, the params and the cache on a
+    card, and ``api.decode_step`` itself on the CPU.
     """
 
     def __init__(self, api: ModelAPI, params, slots: int, cache_len: int):
@@ -157,6 +286,8 @@ class BatchScheduler:
         self.kv_len = 0
         self.cache = api.init_cache(slots, cache_len)
         self.tokens = np.zeros((slots, 1), np.int32)
+        self._decode = (DecodeGraph(api.decode_step, params, self.cache)
+                        if api.device.type == "cuda" else api.decode_step)
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)
@@ -175,8 +306,10 @@ class BatchScheduler:
         if not any(self.active):
             return 0
         token = torch.from_numpy(self.tokens).to(self.api.device)
-        logits, self.cache = self.api.decode_step(
-            self.params, self.cache, self.kv_len, token)
+        kv_len = torch.full((), self.kv_len, dtype=torch.int32,
+                            device=self.api.device)
+        logits, self.cache = self._decode(self.params, self.cache, kv_len,
+                                          token)
         self.kv_len = min(self.kv_len + 1, self.cache_len - 1)
         nxt = logits.argmax(-1).cpu().numpy()
         done = 0

@@ -1,5 +1,8 @@
 """Port's decoder LM against ``repro.models.transformer`` on a reduced
-TinyLlama (2 layers, d_model 128).
+TinyLlama (2 layers, d_model 128); the forward, prefill and dense decode
+also on reduced StarCoder2-7B (LayerNorm, GELU, qkv bias) and Qwen2.5-14B
+(qkv bias, SwiGLU), whose zero-initialised biases are drawn at random so
+that the bias paths carry numbers.
 
 Both sides run JAX-initialised parameters cast to float32, so the only
 differences are summation order and float32 transcendental rounding.
@@ -30,21 +33,39 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 CPU = "cpu"
 
 
-def _cfgs(vocab=512):
+MORE_DENSE = ["starcoder2_7b", "qwen2p5_14b"]
+BIASES = ("bq", "bk", "bv", "norm1_b", "norm2_b")
+
+
+def _cfgs(vocab=512, arch="tinyllama_1p1b"):
     changes = dict(num_layers=2, vocab_size=vocab)
-    return (dataclasses.replace(reduced_config(get_config("tinyllama_1p1b")),
-                                **changes),
-            dataclasses.replace(
-                jax_reduced_config(jax_get_config("tinyllama_1p1b")), **changes))
+    return (dataclasses.replace(reduced_config(get_config(arch)), **changes),
+            dataclasses.replace(jax_reduced_config(jax_get_config(arch)),
+                                **changes))
+
+
+def _build(arch="tinyllama_1p1b", random_biases=False):
+    cfg, jcfg = _cfgs(arch=arch)
+    jparams, _ = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
+    jparams = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), jparams)
+    if random_biases:
+        rng = np.random.default_rng(7)
+        jparams = jax.tree_util.tree_map_with_path(
+            lambda path, a: a + jnp.asarray(0.1 * rng.standard_normal(a.shape),
+                                            jnp.float32)
+            if path[-1].key in BIASES else a, jparams)
+    tparams = to_torch(jax.device_get(jparams), device=CPU)
+    return cfg, jcfg, jparams, tparams
 
 
 @pytest.fixture(scope="module")
 def model():
-    cfg, jcfg = _cfgs()
-    jparams, _ = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
-    jparams = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), jparams)
-    tparams = to_torch(jax.device_get(jparams), device=CPU)
-    return cfg, jcfg, jparams, tparams
+    return _build()
+
+
+@pytest.fixture(scope="module", params=MORE_DENSE)
+def more_dense(request):
+    return _build(request.param, random_biases=True)
 
 
 def _tokens(B, S, vocab=512, seed=3):
@@ -90,6 +111,14 @@ def test_native_init_matches_jax_shapes_and_dtypes():
 
 
 def test_forward_matches_jax(model):
+    _forward_matches_jax(model)
+
+
+def test_forward_matches_jax_past_tinyllama(more_dense):
+    _forward_matches_jax(more_dense)
+
+
+def _forward_matches_jax(model):
     cfg, jcfg, jparams, tparams = model
     tok = _tokens(2, 16)
     jlogits, _ = JTF.lm_forward(jparams, jcfg, jnp.asarray(tok))
@@ -102,6 +131,14 @@ def test_forward_matches_jax(model):
 
 
 def test_prefill_and_dense_decode_match_jax(model):
+    _prefill_and_dense_decode_match_jax(model)
+
+
+def test_prefill_and_dense_decode_match_jax_past_tinyllama(more_dense):
+    _prefill_and_dense_decode_match_jax(more_dense)
+
+
+def _prefill_and_dense_decode_match_jax(model):
     cfg, jcfg, jparams, tparams = model
     tok = _tokens(2, 12)
     jlog, jcache = JTF.lm_prefill(jparams, jcfg, jnp.asarray(tok[:, :8]),
