@@ -11,7 +11,8 @@ Phases, each of which exits non-zero on failure:
      tensor-core instructions in the SASS of the bf16 flash library (HGMMA)
      and of the bf16 gla_scan library (HMMA);
   3. each kernel against its plain PyTorch version at the main paths'
-     shapes: max |err| beside the tolerance, and kernel, plain, library
+     shapes (flash and paged also at granite-MoE's and DBRX's heads):
+     max |err| beside the tolerance, and kernel, plain, library
      (where one call computes the same function) and bound times; flash
      and gla_scan on both routes (bf16 on the tensor cores, fp32 and the
      shapes the tensor-core gla_scan does not take on CUDA cores); paged
@@ -19,8 +20,10 @@ Phases, each of which exits non-zero on failure:
      (up to 32768 positions), beside the CUDA-core kernel it replaced; the
      host time of one wrapper call of each kernel at its main-path shape;
      then
-     reduced TinyLlama, RWKV6 and Zamba2 models on the card (the kernels)
-     held against the CPU path (their plain versions) in fp32;
+     reduced TinyLlama, granite-MoE, DBRX, RWKV6 and Zamba2 models on the
+     card (the kernels) held against the CPU path (their plain versions)
+     in fp32, for the MoE family with its load-balance loss (and, once, a
+     MoE layer that drops tokens);
   4. the TinyLlama path: full-width TinyLlama (random weights from the
      seed) -- prefill of 8 x 512 tokens through the bf16 flash kernel, dense
      decode, then paged decode through the paged kernel (every launch on
@@ -41,7 +44,13 @@ Phases, each of which exits non-zero on failure:
      the captured buffers), then BatchScheduler serving, captured and
      eager;
   8. zamba2_1p2b at full width and depth: the same, with the shared
-     attention block through the flash kernel once per group.
+     attention block through the flash kernel once per group;
+  9. granite_moe_3b_a800m at full width and depth through phase 4's path
+     (prefill, dense and paged decode eager and captured, profiles), with
+     the tokens whose top-K expert sets differ between the dense and the
+     paged step counted per layer, then BatchScheduler as in phase 5;
+ 10. dbrx_132b at full width with 4 of its 40 layers through the same
+     path, and its peak device memory during init and during the run.
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
 """
@@ -84,9 +93,34 @@ TOL_PAGED_LONG = 2e-3
 # route vs its plain version
 TOL_FP32 = 1e-4
 # Paged against dense decode of the full model in bf16: the two attention
-# paths round differently and the difference grows through 22 layers; an
-# H100 measured 0.072 at seed 0, and this allows 3.5 times that.
-TOL_PAGED_LOGITS = 0.25
+# paths round differently and the difference grows through the layers.
+# TinyLlama (22 layers): an H100 measured 0.072 at seed 0, and this allows
+# 3.5 times that.  The MoE family also routes on the rounded values, and a
+# token whose top-K expert set flips between the two paths moves by a
+# whole expert's share, not by drift.  With the reference's expert init
+# (E^-0.5, ROADMAP.md Queue 3) the MoE output dwarfs the residual stream,
+# so each flip moves the logits by O(1) and flips beget flips with depth.
+# An H100 measured 5.0312 (granite, 32 layers: 1138 of 2048 (step, token,
+# layer) top-8 sets flipped, 0 in layer 0 and 54 of 64 in the last) and
+# 3.0234 (dbrx, 4 layers: 8 of 256 top-4 sets) at seed 0; these allow 3.5
+# times that.  For the MoE family this limit cannot tell a wrong paged
+# kernel from a flip: TOL_PAGED_PINNED is the gate that can.
+TOL_PAGED_LOGITS = {"tinyllama_1p1b": 0.25, "granite_moe_3b_a800m": 17.6,
+                    "dbrx_132b": 10.6}
+# The same comparison with each layer's experts pinned to the dense path's,
+# so that no flip moves a token: the attention paths' rounding, carried
+# through layers whose MoE outputs are large.  An H100 measured 0.4570
+# (granite) and 0.1094 (dbrx) at seed 0; these allow 3.5 times that.  Over
+# five more draws of weights (scripts/moe_paged_gate.py, seeds 0-3, and
+# this script) it read at most 0.4434 and 0.1719, at a mean |logit| of
+# 0.80, and the paged kernel run without each sequence's first page (the
+# planted fault of moe_routing, which main_path requires to fail this
+# limit) at least 6.6562 and 5.8438.
+TOL_PAGED_PINNED = {"granite_moe_3b_a800m": 1.6, "dbrx_132b": 0.38}
+# The MoE family on the card: granite at full width and depth; dbrx at full
+# width with 4 of its 40 layers (its 132 B bf16 weights are about 264 GB).
+MOE_ARCHS = ("granite_moe_3b_a800m", "dbrx_132b")
+DBRX_LAYERS = 4
 # GLA scan kernel against its plain version, as the JAX package's GLA
 # tests compare (tests/test_kernels.py): atol = rtol = 4 x {fp32 2e-5,
 # bf16 2e-2} on the output (which reaches O(100) at S 512, where one bf16
@@ -190,13 +224,16 @@ def check_flash(gen, timer) -> dict:
     bf16, fp32 = torch.bfloat16, torch.float32
     # B, Sq, Sk, Hq, Hkv, D, causal, window, dtype, SDPA timed; the first is
     # TinyLlama's prefill shape (G = 8 query heads per K/V head), the fifth
-    # Zamba2's shared attention block (G = 1), the last the first in fp32,
-    # which takes the CUDA-core route.
+    # Zamba2's shared attention block (G = 1), the sixth and seventh
+    # granite-MoE's (G = 3) and DBRX's (G = 6, D 128), the last the first in
+    # fp32, which takes the CUDA-core route.
     cases = [(8, 512, 512, 32, 4, 64, True, None, bf16, True),
              (8, 500, 500, 32, 4, 64, True, None, bf16, False),
              (8, 512, 512, 32, 4, 64, True, 128, bf16, False),
              (8, 128, 512, 32, 4, 64, False, None, bf16, True),
              (8, 512, 512, 32, 32, 64, True, None, bf16, True),
+             (8, 512, 512, 24, 8, 64, True, None, bf16, False),
+             (8, 512, 512, 48, 8, 128, True, None, bf16, False),
              (8, 512, 512, 32, 4, 64, True, None, fp32, False)]
     tol = {bf16: TOL_BF16, fp32: TOL_FP32}
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -359,15 +396,19 @@ def check_paged(gen, timer) -> dict:
     from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
-    # TinyLlama's heads (G = 8, D 64) at page 128: the decode shape of
-    # earlier PRs (contexts up to 1024), then a long context (16384-32768
-    # positions: 256 table columns, two pools of 2048 pages, 134 MB each),
-    # where the bytes bound and not the launch latency is the yardstick.
-    B, Hq, Hkv, D, page = 8, 32, 4, 64, 128
+    # At page 128: TinyLlama's heads (G = 8, D 64) at the decode shape of
+    # earlier PRs (contexts up to 1024), granite-MoE's (G = 3, D 64) and
+    # DBRX's (G = 6, D 128) at the same shape, then TinyLlama's at a long
+    # context (16384-32768 positions: 256 table columns, two pools of 2048
+    # pages, 134 MB each), where the bytes bound and not the launch latency
+    # is the yardstick.
+    B, page = 8, 128
     rows = []
-    for label, max_len, min_len, tol in (("decode", 1024, 1, TOL_BF16),
-                                         ("long context", 32768, 16384,
-                                          TOL_PAGED_LONG)):
+    for label, Hq, Hkv, D, max_len, min_len, tol in (
+            ("decode", 32, 4, 64, 1024, 1, TOL_BF16),
+            ("granite-MoE decode", 24, 8, 64, 1024, 1, TOL_BF16),
+            ("DBRX decode", 48, 8, 128, 1024, 1, TOL_BF16),
+            ("long context", 32, 4, 64, 32768, 16384, TOL_PAGED_LONG)):
         q, kp, vp, table, seq_lens = paged_inputs(gen, B, Hq, Hkv, D, page,
                                                   max_len, min_len)
         args = (q, kp, vp, table, seq_lens)
@@ -511,21 +552,28 @@ def fill_paged_pool(cache: dict, paged: dict, perm: torch.Tensor) -> None:
         paged[f"{name}_pool"][:, perm] = cache[name].reshape(L, B * n, page, KV, hd)
 
 
-def check_reduced_against_cpu(seed: int) -> None:
-    """A 2-layer reduced TinyLlama in fp32: the card (both kernels) against
-    the CPU path (their plain versions) on the same weights and tokens."""
+def check_reduced_against_cpu(arch: str, seed: int) -> None:
+    """A 2-layer reduced ``arch`` in fp32: the card (both kernels) against
+    the CPU path (their plain versions) on the same weights and tokens,
+    prefill and 4 paged steps.  For the MoE family also the forward's
+    summed load-balance loss; for granite-MoE also the first layer's MoE at
+    capacity factor 0.5 (tokens drop): its output, ``aux_loss`` and
+    ``dropped_frac``.  (The reduced DBRX has granite's E, K and widths, so
+    the same draws would give it the same MoE layer.)"""
     from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as TF
 
-    cfg = dataclasses.replace(reduced_config(get_config("tinyllama_1p1b")),
-                              num_layers=2)
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), num_layers=2)
     params, _ = TF.init_lm(cfg, torch.Generator().manual_seed(seed), "cpu")
     cpu_p = tree_to(params, "cpu", torch.float32)
     gpu_p = tree_to(params, "cuda", torch.float32)
     tok = torch.randint(0, cfg.vocab_size, (2, 20),
                         generator=torch.Generator().manual_seed(seed))
+    moe_x = torch.randn(2, 20, cfg.d_model,
+                        generator=torch.Generator().manual_seed(seed + 1))
     worst = 0.0
-    outs = {}
+    outs, moe = {}, {}
     for dev, p in (("cpu", cpu_p), ("cuda", gpu_p)):
         t = tok.to(dev)
         logits, cache = TF.lm_prefill(p, cfg, t[:, :16], cache_len=20)
@@ -536,13 +584,30 @@ def check_reduced_against_cpu(seed: int) -> None:
         for s in range(16, 20):
             seq.append(TF.lm_decode_step_paged(p, cfg, paged, s,
                                                t[:, s:s + 1])[0])
-        outs[dev] = [x.float().cpu() for x in seq]
+        if cfg.family == "moe":
+            moe[dev] = {"forward aux": TF.lm_forward(p, cfg, t)[1]}
+        if arch == MOE_ARCHS[0]:
+            out, aux = MOE.moe_fwd(
+                {k: v[0] for k, v in p["blocks"]["moe"].items()}, moe_x.to(dev),
+                num_experts=cfg.num_experts, top_k=cfg.top_k, kind=cfg.mlp,
+                capacity_factor=0.5)
+            moe[dev] |= {"aux_loss": aux["aux_loss"],
+                         "dropped_frac": aux["dropped_frac"]}
+            seq.append(out)
+        outs[dev] = [x.float().cpu() for x in seq + list(moe.get(dev, {}).values())]
     for a, b in zip(outs["cpu"], outs["cuda"]):
         worst = max(worst, max_err(a, b))
-    log(f"reduced model, card vs CPU path (fp32, prefill + 4 paged steps): "
-        f"max|err| {worst:.3e} (tol {TOL_FP32})")
-    if worst > TOL_FP32:
-        raise SystemExit("reduced model on the card disagrees with the CPU path")
+    what = "prefill + 4 paged steps"
+    if moe:
+        what += "; " + ", ".join(f"{k} {v.item():.4f}"
+                                 for k, v in moe["cuda"].items())
+    if arch == MOE_ARCHS[0]:
+        what += ", the last two of layer 0's MoE at capacity factor 0.5"
+    log(f"reduced {arch}, card vs CPU path (fp32, {what}): max|err| "
+        f"{worst:.3e} (tol {TOL_FP32})")
+    if worst > TOL_FP32 or moe.get("cuda", {}).get("dropped_frac", 1) == 0:
+        raise SystemExit(f"reduced {arch} on the card disagrees with the CPU "
+                         "path (or its MoE check dropped no token)")
 
 
 def check_reduced_ssm_against_cpu(arch: str, seed: int) -> None:
@@ -671,11 +736,24 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
         f"ms/step, paged decode {paged_s * 1e3:.3f} ms/step, launches {counts}, "
         f"prefill flash routes {prefill_counts['flash_attention routes']}, "
         f"paged decode routes {paged_routes}")
+    tol = TOL_PAGED_LOGITS[cfg.name]
     log(f"paged vs dense decode logits over {steps} steps: max|err| {err:.4f} "
-        f"(tol {TOL_PAGED_LOGITS}); greedy tokens equal {same}/{n_tok}, "
+        f"(tol {tol}); greedy tokens equal {same}/{n_tok}, "
         f"largest dense-logit gap where they differ {gap:.4f}")
-    if not (torch.isfinite(p).all() and err <= TOL_PAGED_LOGITS
-            and gap <= TOL_PAGED_LOGITS):
+    if cfg.family == "moe":
+        r = moe_routing(api, params, cache0, paged0, tokens, S, steps)
+        if not torch.equal(r["dense_logits"], torch.stack(dense_logits)):
+            raise SystemExit(f"{cfg.name}: dense decode rerun from the same "
+                             "cache gave other logits")
+        pin = TOL_PAGED_PINNED[cfg.name]
+        log(f"{cfg.name} pinned limit {pin}: the run must be within it, the "
+            "planted fault outside it")
+        if not (r["finite"] and max(r["pinned"][0], r["pinned"][3]) <= pin
+                < r["fault"][0]):
+            raise SystemExit(f"{cfg.name}: paged decode with pinned experts "
+                             "disagrees with dense decode, or the planted "
+                             "fault passes the pinned limit")
+    if not (torch.isfinite(p).all() and err <= tol and gap <= tol):
         raise SystemExit("paged decode disagrees with dense decode")
     flash0 = flash_cuda.launches
 
@@ -707,19 +785,95 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
     if dev.type == "cuda":
         with torch.inference_mode():
             for label, step in (
-                    ("prefill", lambda t: api.prefill(
+                    (f"{cfg.name} prefill", lambda t: api.prefill(
                         params, {"tokens": tokens[:, :S]}, cache_len=cache_len)),
-                    ("dense decode", lambda t: api.decode_step(
+                    (f"{cfg.name} dense decode", lambda t: api.decode_step(
                         params, cache, t, tokens[:, t:t + 1])),
-                    ("paged decode", lambda t: TF.lm_decode_step_paged(
+                    (f"{cfg.name} paged decode", lambda t: TF.lm_decode_step_paged(
                         params, cfg, paged, t, tokens[:, t:t + 1])),
-                    ("dense decode graph", lambda t: g_dense(
+                    (f"{cfg.name} dense decode graph", lambda t: g_dense(
                         params, cache_g, t, tokens[:, t:t + 1])),
-                    ("paged decode graph", lambda t: g_paged(
+                    (f"{cfg.name} paged decode graph", lambda t: g_paged(
                         params, paged_g, t, tokens[:, t:t + 1]))):
                 profile_steps(label, step, S + steps - 2, 2,
-                              None if label == "prefill" else weights_ms(params))
+                              None if label.endswith("prefill")
+                              else weights_ms(params))
     return {"counts": counts, "paged": paged}
+
+
+def moe_routing(api, params, cache0, paged0, tokens, S, steps) -> dict:
+    """Run the dense and the paged decode steps again from the post-prefill
+    caches, recording every layer's top-K experts (``moe.route``, which
+    ``moe_fwd`` calls), and log how many tokens' expert sets differ between
+    the two paths in each layer.  Then run the paged steps twice more with
+    each layer's experts pinned to the dense path's (gates from the paged
+    path's own probs): once as they are, so that what is left of the
+    paged-vs-dense difference is the attention paths' rounding carried
+    through the layers, and once with a planted fault, the paged kernel
+    called without the first page of every sequence (the pages one
+    cluster rank holds).  Returns the dense rerun's logits, the flips per
+    layer, ``near_tie`` of the pinned run and of the faulted one, and the
+    mean |logit| of the dense path."""
+    from unittest import mock
+
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.engine import tree_clone
+
+    cfg = api.cfg
+    route, paged_attention = MOE.route, TF.paged_attention
+
+    def run(step, state, pinned=None):
+        rec, logits = [], []
+
+        def recording(p_, x, top_k):
+            probs, vals, idx = route(p_, x, top_k)
+            if pinned is not None:
+                idx = pinned[len(rec)]
+                vals = probs.gather(-1, idx)
+                vals = vals / (vals.sum(-1, keepdim=True) + 1e-9)
+            rec.append(idx)
+            return probs, vals, idx
+
+        with mock.patch.object(MOE, "route", recording), torch.inference_mode():
+            for t in range(S, S + steps):
+                lg, state = step(params, state, t, tokens[:, t:t + 1])
+                logits.append(lg.float())
+        return rec, torch.stack(logits)
+
+    def paged_step(p_, c_, n_, t_):
+        return TF.lm_decode_step_paged(p_, cfg, c_, n_, t_)
+
+    def first_page_dropped(q, k_pool, v_pool, table, seq_lens):
+        return paged_attention(q, k_pool, v_pool, table[:, 1:].contiguous(),
+                               seq_lens - k_pool.shape[1])
+
+    def sets(rec):
+        return torch.stack(rec).sort(dim=-1).values.view(
+            steps, cfg.num_layers, -1, cfg.top_k)
+
+    dense_rec, dense_lg = run(api.decode_step, tree_clone(cache0))
+    paged_rec, _ = run(paged_step, tree_clone(paged0))
+    _, pinned_lg = run(paged_step, tree_clone(paged0), pinned=dense_rec)
+    with mock.patch.object(TF, "paged_attention", first_page_dropped):
+        _, fault_lg = run(paged_step, tree_clone(paged0), pinned=dense_rec)
+    per_layer = (sets(dense_rec) != sets(paged_rec)).any(-1).sum(dim=(0, 2)).tolist()
+    r = {"dense_logits": dense_lg, "flips": per_layer,
+         "pinned": near_tie(dense_lg, pinned_lg),
+         "fault": near_tie(dense_lg, fault_lg),
+         "finite": bool(torch.isfinite(pinned_lg).all()),
+         "logit_abs": dense_lg.abs().mean().item()}
+    log(f"{cfg.name} routing, paged vs dense decode: top-{cfg.top_k} expert "
+        f"sets differ for {sum(per_layer)} of {steps * cfg.num_layers * tokens.shape[0]} "
+        f"(step, token, layer) triples; per layer {per_layer}")
+    for what in ("pinned", "fault"):
+        err, same, n_tok, gap = r[what]
+        log(f"{cfg.name} paged vs dense decode, experts pinned to the dense "
+            f"path's{', first page dropped (planted fault)' * (what == 'fault')}: "
+            f"max|err| {err:.4f} (mean |logit| {r['logit_abs']:.4f}); greedy "
+            f"tokens equal {same}/{n_tok}, largest dense-logit gap where they "
+            f"differ {gap:.4f}")
+    return r
 
 
 def ssm_path(api, params, gen, gla_cuda, flash_cuda, B=8, S=512,
@@ -993,7 +1147,8 @@ def main() -> int:
     paged_row = check_paged(gen, timer)
     gla_row = check_gla(gen, timer)
     del timer
-    check_reduced_against_cpu(args.seed)
+    for arch in ("tinyllama_1p1b",) + MOE_ARCHS:
+        check_reduced_against_cpu(arch, args.seed)
     for arch in ("rwkv6_7b", "zamba2_1p2b"):
         check_reduced_ssm_against_cpu(arch, args.seed)
 
@@ -1035,6 +1190,34 @@ def main() -> int:
         serve_batch(api, params, f"{name} ({card})")
         del api, params
         torch.cuda.empty_cache()
+
+    # 9-10. the MoE family: granite at full width and depth, dbrx at full
+    # width and reduced depth
+    for arch in MOE_ARCHS:
+        t_phase = time.perf_counter()
+        cfg = get_config(arch)
+        if arch == "dbrx_132b":
+            log(f"dbrx_132b: {DBRX_LAYERS} of its {cfg.num_layers} layers at "
+                "full width (bf16 weights of all 40 are about 264 GB)")
+            cfg = dataclasses.replace(cfg, num_layers=DBRX_LAYERS)
+        torch.cuda.reset_peak_memory_stats()
+        api = build_model(cfg)
+        params, _ = api.init(gen)
+        init_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        moe = main_path(api, params, gen, flash_attention_cuda,
+                        paged_attention_cuda)
+        log(f"{arch}: launches {moe['counts']}; weights "
+            f"{weights_ms(params) * H100_BYTES_PER_S / 1e12:.3f} GB; peak "
+            f"device memory {init_peak:.3f} GiB during init, "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB during "
+            "prefill and decode")
+        del moe
+        if arch == "granite_moe_3b_a800m":
+            serve_batch(api, params, f"{name} ({card})")
+        del api, params
+        torch.cuda.empty_cache()
+        log(f"{arch} phase {time.perf_counter() - t_phase:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     entries = []

@@ -2,9 +2,11 @@
 
 Port of ``repro.models.registry``.  ``build_model(cfg, device)`` returns a
 :class:`ModelAPI` with the JAX package's members; ``input_specs`` returns
-meta-device tensors in place of ``ShapeDtypeStruct``.  The dense
-transformer, ssm (RWKV6) and hybrid (Zamba2) families are ported; the
-others raise ``NotImplementedError`` naming their ROADMAP.md item.
+meta-device tensors in place of ``ShapeDtypeStruct``.  The dense and
+MoE transformer (whose ``loss_fn`` adds 0.01 x the summed load-balance
+loss, as the JAX package's), ssm (RWKV6) and hybrid (Zamba2) families are
+ported; the others raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations

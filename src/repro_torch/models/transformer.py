@@ -1,14 +1,16 @@
-"""Decoder-only LM, dense family with full attention.
+"""Decoder-only LM, the dense and MoE families with full attention.
 
 Port of ``repro.models.transformer``.  Layer params are stacked on a
 leading "layers" axis as in JAX; each ``lax.scan`` over them becomes a
 Python loop over the same stacked tensors.  Caches are written in place:
 ``lm_decode_step`` and ``lm_decode_step_paged`` update the cache dict they
-are given and return it, where the JAX functions return a new one.
+are given and return it, where the JAX functions return a new one.  A MoE
+block (granite, dbrx) runs ``models.moe`` where a dense block runs its MLP,
+and its load-balance loss is summed over the layers.
 
-The ``local_global`` attention pattern (gemma3), the ``moe`` family and the
-``vlm`` family raise ``NotImplementedError``: they are items 4 (second
-half) and 7 of Queue 1 in ROADMAP.md.
+The ``local_global`` attention pattern (gemma3) and the ``vlm`` family
+raise ``NotImplementedError``: they are item 4 (second half) of Queue 1 in
+ROADMAP.md.
 
 Entry points:
   init_lm(cfg, generator, device)             -> (params, logical-axes tree)
@@ -30,6 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import layers as L
+from repro_torch.models.moe import init_moe, moe_fwd
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -38,15 +41,11 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: local_global attention is not ported yet "
             "(ROADMAP.md, Queue 1 item 4)")
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: the moe family is not ported yet "
-            "(ROADMAP.md, Queue 1 item 7)")
     if cfg.family == "vlm":
         raise NotImplementedError(
             f"{cfg.name}: the vlm family (M-RoPE, embeds prefix) is not "
             "ported yet (ROADMAP.md, Queue 1 item 4)")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not a transformer family")
 
@@ -65,7 +64,7 @@ def _attn_cfg(cfg: ModelConfig, *, window=None, theta=None) -> L.AttnConfig:
 
 
 def init_block(cfg: ModelConfig, generator) -> tuple[dict, dict]:
-    """One decoder block: norm -> attn -> norm -> mlp."""
+    """One decoder block: norm -> attn -> norm -> mlp/moe."""
     check_supported(cfg)
     p = L.ParamFactory(generator)
     ap, aa = L.init_attention(generator, _attn_cfg(cfg))
@@ -78,8 +77,13 @@ def init_block(cfg: ModelConfig, generator) -> tuple[dict, dict]:
         p.zeros("norm1_b", (cfg.d_model,), ("embed",))
         p.ones("norm2_w", (cfg.d_model,), ("embed",))
         p.zeros("norm2_b", (cfg.d_model,), ("embed",))
-    mp, ma = L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp)
-    p.params["mlp"], p.axes["mlp"] = mp, ma
+    if cfg.family == "moe":
+        mp, ma = init_moe(generator, cfg.d_model, cfg.d_ff, cfg.num_experts,
+                          cfg.top_k, cfg.mlp)
+        p.params["moe"], p.axes["moe"] = mp, ma
+    else:
+        mp, ma = L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp)
+        p.params["mlp"], p.axes["mlp"] = mp, ma
     return p.params, p.axes
 
 
@@ -95,6 +99,17 @@ def _norm2(params, cfg, x):
     return L.layer_norm(x, params["norm2_w"], params["norm2_b"])
 
 
+def _mix(params, cfg, h):
+    """The block's MLP or MoE: (out, aux_loss), aux_loss None for an MLP
+    (so that a dense decode step launches nothing for it)."""
+    if cfg.family == "moe":
+        m, aux = moe_fwd(params["moe"], h, num_experts=cfg.num_experts,
+                         top_k=cfg.top_k, kind=cfg.mlp,
+                         capacity_factor=cfg.capacity_factor)
+        return m, aux["aux_loss"]
+    return L.mlp_fwd(params["mlp"], h, cfg.mlp), None
+
+
 def block_fwd(params, x, cfg: ModelConfig, positions, *,
               window=None, theta=None):
     """Full-sequence block.  Returns (x, (k, v), aux_loss)."""
@@ -102,8 +117,10 @@ def block_fwd(params, x, cfg: ModelConfig, positions, *,
     a, kv = L.attention_fwd(params["attn"], _norm1(params, cfg, x), acfg,
                             positions)
     x = x + a
-    m = L.mlp_fwd(params["mlp"], _norm2(params, cfg, x), cfg.mlp)
-    return x + m, kv, torch.zeros((), device=x.device)
+    m, aux = _mix(params, cfg, _norm2(params, cfg, x))
+    if aux is None:
+        aux = torch.zeros((), device=x.device)
+    return x + m, kv, aux
 
 
 def block_decode(params, x, cfg: ModelConfig, k_cache, v_cache, kv_len,
@@ -113,7 +130,7 @@ def block_decode(params, x, cfg: ModelConfig, k_cache, v_cache, kv_len,
         params["attn"], _norm1(params, cfg, x), acfg, k_cache, v_cache,
         kv_len, positions)
     x = x + a
-    m = L.mlp_fwd(params["mlp"], _norm2(params, cfg, x), cfg.mlp)
+    m, _ = _mix(params, cfg, _norm2(params, cfg, x))
     return x + m, k_cache, v_cache
 
 
@@ -300,5 +317,5 @@ def lm_decode_step_paged(params, cfg: ModelConfig, cache: dict, kv_len,
                             seq_lens)
         o = o.reshape(B, 1, cfg.num_heads * cfg.hd)
         x = x + o @ blk["attn"]["wo"]
-        x = x + L.mlp_fwd(blk["mlp"], _norm2(blk, cfg, x), cfg.mlp)
+        x = x + _mix(blk, cfg, _norm2(blk, cfg, x))[0]
     return _final(params, cfg, x)[:, 0], cache

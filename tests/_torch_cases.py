@@ -16,6 +16,14 @@ FA_CASES = [
     (1, 64, 64, 2, 2, 64, True, 16),
     (1, 100, 100, 2, 2, 64, True, None),    # ragged
 ]
+# B, Sq, Sk, Hq, Hkv, D, causal, window: the MoE family's heads, which no
+# other path gives the flash kernel: granite-MoE (G = 3, D 64) and DBRX
+# (G = 6, D 128), the second also at a ragged S.
+FA_MOE_CASES = [
+    (2, 256, 256, 6, 2, 64, True, None),
+    (1, 192, 192, 12, 2, 128, True, None),
+    (1, 100, 100, 12, 2, 128, True, None),
+]
 # B, Hq, Hkv, D, pool_pages, page, max_pages  (PA_CASES of tests/test_kernels.py)
 PA_CASES = [
     (2, 8, 2, 64, 16, 16, 4),
@@ -26,7 +34,7 @@ PA_CASES = [
 # Hq, Hkv, D, pool_pages, page, max_pages, seq_lens: calls of the split
 # paged route (D 64 or 128, G = Hq / Hkv in 1..9, page a multiple of 16), at
 # the G of the configs the paged path serves or will serve (Zamba2 1,
-# granite 3, qwen2.5 5, TinyLlama 8, starcoder2 9).  The lengths straddle
+# granite 3, qwen2.5 5, DBRX 6, TinyLlama 8, starcoder2 9).  The lengths straddle
 # the page and split boundaries (C = min(max_pages, 8) ranks take pages
 # r, r + C, ...): 1, page - 1, page, page + 1, C * page +- 1 and
 # max_pages * page; the last case's table is wider than the pages used, so
@@ -39,6 +47,7 @@ PA_SPLIT_CASES = [
     (36, 4, 128, 48, 16, 10, (160, 129, 33, 8)),
     (36, 4, 64, 12, 128, 3, (384, 200)),
     (32, 4, 64, 64, 16, 32, (17, 16, 3)),
+    (48, 8, 128, 16, 128, 5, (640, 513, 128, 1)),  # DBRX's heads
 ]
 # B, H, S, K, V, chunk  (GLA_CASES of tests/test_kernels.py)
 GLA_CASES = [

@@ -6,8 +6,9 @@ import no JAX, so they run on the card's machine:
 
 Reduced TinyLlama (2 layers; dense, and paged at page 16 with head dim 64,
 which takes the cluster-split paged kernel, or 32, which takes the
-CUDA-core one), RWKV6-7B (2 layers) and Zamba2-1.2B (3 layers: one group
-and a tail) in bf16 with random weights from a seed.  A replay runs the
+CUDA-core one), RWKV6-7B (2 layers), Zamba2-1.2B (3 layers: one group
+and a tail) and granite-MoE-3B (2 layers of 8 experts top-2; dense, and
+paged on the split route) in bf16 with random weights from a seed.  A replay runs the
 kernels the eager step launches, in the same order, on the same inputs, so
 logits and state must be bitwise equal.
 """
@@ -24,12 +25,17 @@ from repro_torch.models.registry import build_model
 from repro_torch.serve import engine
 from repro_torch.serve.engine import BatchScheduler, DecodeGraph, Request
 
-STEPS = ["dense", "paged_split", "paged_simt", "rwkv6", "zamba2"]
+STEPS = ["dense", "paged_split", "paged_simt", "rwkv6", "zamba2", "moe",
+         "moe_paged_split"]
 ARCH = {"dense": "tinyllama_1p1b", "paged_split": "tinyllama_1p1b",
         "paged_simt": "tinyllama_1p1b", "rwkv6": "rwkv6_7b",
-        "zamba2": "zamba2_1p2b"}
+        "zamba2": "zamba2_1p2b", "moe": "granite_moe_3b_a800m",
+        "moe_paged_split": "granite_moe_3b_a800m"}
 LAYERS = {"tinyllama_1p1b": dict(num_layers=2), "rwkv6_7b": dict(num_layers=2),
-          "zamba2_1p2b": dict(num_layers=3, attn_every=2)}
+          "zamba2_1p2b": dict(num_layers=3, attn_every=2),
+          "granite_moe_3b_a800m": dict(num_layers=2)}
+PAGED_ROUTE = {"paged_split": "split", "paged_simt": "simt",
+               "moe_paged_split": "split"}
 B, PROMPT, N_STEPS, CACHE_LEN, PAGE = 4, 40, 8, 64, 16
 
 
@@ -43,7 +49,7 @@ def cuda_device():
 def _api(kind, device):
     arch = ARCH[kind]
     changes = dict(LAYERS[arch])
-    if kind == "paged_split":
+    if PAGED_ROUTE.get(kind) == "split":
         changes["head_dim"] = 64
     cfg = dataclasses.replace(reduced_config(get_config(arch)), **changes)
     api = build_model(cfg, device)
@@ -64,7 +70,7 @@ def _start(kind, device):
         _, state = api.prefill(params, {"tokens": tok[:, :PROMPT]},
                                cache_len=CACHE_LEN)
     step = api.decode_step
-    if kind.startswith("paged"):
+    if kind in PAGED_ROUTE:
         paged = TF.lm_init_paged_cache(cfg, B, CACHE_LEN, page=PAGE,
                                        device=device)
         n = CACHE_LEN // PAGE
@@ -112,7 +118,7 @@ def test_replay_equals_eager_step(kind, cuda_device):
             assert torch.equal(got, want), f"logits differ at step {i}"
             assert _equal(static, eager), f"state differs at step {i}"
     torch.cuda.synchronize()
-    route = {"paged_split": "split", "paged_simt": "simt"}.get(kind)
+    route = PAGED_ROUTE.get(kind)
     per_capture = api.cfg.num_layers * (DecodeGraph.WARMUP + 1) if route else 0
     assert {r: first[r] - before[r] for r in first} == {
         r: per_capture * (r == route) for r in first}
@@ -150,10 +156,11 @@ def test_paged_graph_follows_a_remapped_block_table(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["tinyllama_1p1b", "rwkv6_7b", "zamba2_1p2b"])
+@pytest.mark.parametrize("arch", ["tinyllama_1p1b", "rwkv6_7b", "zamba2_1p2b",
+                                  "granite_moe_3b_a800m"])
 def test_graph_and_eager_schedulers_give_the_same_tokens(arch, cuda_device):
     kind = {"tinyllama_1p1b": "dense", "rwkv6_7b": "rwkv6",
-            "zamba2_1p2b": "zamba2"}[arch]
+            "zamba2_1p2b": "zamba2", "granite_moe_3b_a800m": "moe"}[arch]
     api, params = _api(kind, cuda_device)
     prompts = torch.randint(0, api.cfg.vocab_size, (10, 4),
                             generator=torch.Generator().manual_seed(3)).numpy()

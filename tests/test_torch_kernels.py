@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import FA_CASES, PA_CASES, TOL, fa_inputs, pa_inputs
+from _torch_cases import (FA_CASES, FA_MOE_CASES, PA_CASES, TOL, fa_inputs,
+                          pa_inputs)
 from repro.kernels.flash_attention.ops import flash_attention_xla as jax_fa_xla
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro.kernels.paged_attention.ref import \
@@ -49,6 +50,16 @@ def _np(x) -> np.ndarray:
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FA_CASES)
 def test_flash_attention_xla_matches_jax(case, dtype):
+    _flash_xla_matches_jax(case, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_MOE_CASES)
+def test_flash_attention_xla_matches_jax_at_moe_heads(case, dtype):
+    _flash_xla_matches_jax(case, dtype)
+
+
+def _flash_xla_matches_jax(case, dtype):
     B, Sq, Sk, Hq, Hkv, D, causal, window = case
     (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in fa_inputs(case))
     ref = jax_fa_xla(jq, jk, jv, causal=causal, window=window,

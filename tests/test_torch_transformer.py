@@ -2,7 +2,10 @@
 TinyLlama (2 layers, d_model 128); the forward, prefill and dense decode
 also on reduced StarCoder2-7B (LayerNorm, GELU, qkv bias) and Qwen2.5-14B
 (qkv bias, SwiGLU), whose zero-initialised biases are drawn at random so
-that the bias paths carry numbers.
+that the bias paths carry numbers; and the MoE family, reduced
+granite-MoE-3B and DBRX-132B (2 layers, 8 experts top-2, DBRX with
+LayerNorm biases drawn at random), through the forward and its summed
+load-balance loss, ``loss_fn``, prefill, dense and paged decode.
 
 Both sides run JAX-initialised parameters cast to float32, so the only
 differences are summation order and float32 transcendental rounding.
@@ -34,6 +37,7 @@ CPU = "cpu"
 
 
 MORE_DENSE = ["starcoder2_7b", "qwen2p5_14b"]
+MOE = ["granite_moe_3b_a800m", "dbrx_132b"]
 BIASES = ("bq", "bk", "bv", "norm1_b", "norm2_b")
 
 
@@ -65,6 +69,11 @@ def model():
 
 @pytest.fixture(scope="module", params=MORE_DENSE)
 def more_dense(request):
+    return _build(request.param, random_biases=True)
+
+
+@pytest.fixture(scope="module", params=MOE)
+def moe(request):
     return _build(request.param, random_biases=True)
 
 
@@ -118,12 +127,20 @@ def test_forward_matches_jax_past_tinyllama(more_dense):
     _forward_matches_jax(more_dense)
 
 
+def test_forward_matches_jax_moe(moe):
+    _forward_matches_jax(moe)
+
+
 def _forward_matches_jax(model):
     cfg, jcfg, jparams, tparams = model
     tok = _tokens(2, 16)
-    jlogits, _ = JTF.lm_forward(jparams, jcfg, jnp.asarray(tok))
+    jlogits, jaux = JTF.lm_forward(jparams, jcfg, jnp.asarray(tok))
     tlogits, aux = TF.lm_forward(tparams, cfg, torch.from_numpy(tok))
-    assert float(aux) == 0.0
+    if cfg.family == "dense":
+        assert float(aux) == 0.0
+    else:  # the load-balance loss summed over the layers, about 1 each
+        assert float(aux) > 0.5 * cfg.num_layers
+    _close(aux, jaux)
     _close(tlogits, jlogits)
     labels = _tokens(2, 16, seed=4)
     _close(cross_entropy(tlogits, torch.from_numpy(labels)),
@@ -136,6 +153,10 @@ def test_prefill_and_dense_decode_match_jax(model):
 
 def test_prefill_and_dense_decode_match_jax_past_tinyllama(more_dense):
     _prefill_and_dense_decode_match_jax(more_dense)
+
+
+def test_prefill_and_dense_decode_match_jax_moe(moe):
+    _prefill_and_dense_decode_match_jax(moe)
 
 
 def _prefill_and_dense_decode_match_jax(model):
@@ -157,6 +178,14 @@ def _prefill_and_dense_decode_match_jax(model):
 
 
 def test_paged_decode_matches_jax(model):
+    _paged_decode_matches_jax(model)
+
+
+def test_paged_decode_matches_jax_moe(moe):
+    _paged_decode_matches_jax(moe)
+
+
+def _paged_decode_matches_jax(model):
     cfg, jcfg, jparams, tparams = model
     tok = _tokens(2, 10)
     jpaged = JTF.lm_init_paged_cache(jcfg, batch=2, max_len=16, page=4,
@@ -193,7 +222,38 @@ def test_paged_decode_matches_dense(model):
         _close(p_logits, d_logits.numpy(), atol=1e-5, rtol=1e-5)
 
 
+def test_paged_decode_matches_dense_moe(moe):
+    """From one prefill's cache, laid into the pool under a shuffled block
+    table: a MoE prefill of 8 tokens drops some at capacity (C 3) where 8
+    one-token steps drop none, so the pool cannot be filled by decoding
+    the prompt, as the dense test does."""
+    cfg, _, _, tparams = moe
+    tok = torch.from_numpy(_tokens(2, 12, seed=5))
+    _, dense = TF.lm_prefill(tparams, cfg, tok[:, :8], cache_len=16)
+    paged = TF.lm_init_paged_cache(cfg, batch=2, max_len=16, page=4,
+                                   dtype=torch.float32, device=CPU)
+    perm = torch.randperm(8, generator=torch.Generator().manual_seed(6))
+    paged["block_table"] = perm.int().view(2, 4)
+    for name in ("k", "v"):
+        L_, B_, S_, KV, hd = dense[name].shape
+        paged[f"{name}_pool"][:, perm] = dense[name].reshape(L_, 8, 4, KV, hd)
+    for t in range(8, 12):
+        d_logits, dense = TF.lm_decode_step(tparams, cfg, dense, t,
+                                            tok[:, t:t + 1])
+        p_logits, paged = TF.lm_decode_step_paged(tparams, cfg, paged, t,
+                                                  tok[:, t:t + 1])
+        _close(p_logits, d_logits.numpy(), atol=1e-5, rtol=1e-5)
+
+
 def test_registry_api_matches_jax_members(model):
+    _registry_api_matches_jax_members(model)
+
+
+def test_registry_api_matches_jax_members_moe(moe):
+    _registry_api_matches_jax_members(moe)
+
+
+def _registry_api_matches_jax_members(model):
     cfg, jcfg, jparams, tparams = model
     api = build_model(cfg, device=CPU)
     jfields = [f.name for f in dataclasses.fields(jax_build_model(jcfg))]
@@ -209,8 +269,36 @@ def test_registry_api_matches_jax_members(model):
     assert specs["cache"]["k"].device.type == "meta"
 
 
-@pytest.mark.parametrize("arch", ["gemma3_4b", "granite_moe_3b_a800m",
-                                  "qwen2_vl_72b", "seamless_m4t_medium"])
+def test_loss_fn_adds_the_moe_aux_loss_as_jax(moe):
+    """``loss_fn`` = cross entropy + 0.01 x the summed load-balance loss,
+    with both in its metrics, as the JAX package's."""
+    cfg, jcfg, jparams, tparams = moe
+    tok, labels = _tokens(2, 16), _tokens(2, 16, seed=4)
+    total, metrics = build_model(cfg, device=CPU).loss_fn(
+        tparams, {"tokens": torch.from_numpy(tok),
+                  "labels": torch.from_numpy(labels)})
+    jtotal, jmetrics = jax_build_model(jcfg).loss_fn(
+        jparams, {"tokens": jnp.asarray(tok), "labels": jnp.asarray(labels)})
+    _close(total, jtotal)
+    for name in ("xent", "aux"):
+        _close(metrics[name], jmetrics[name])
+    _close(total, (metrics["xent"] + 0.01 * metrics["aux"]).detach().numpy())
+    assert float(metrics["aux"]) > 0.0
+
+
+def test_native_init_matches_jax_shapes_and_dtypes_moe(moe):
+    cfg, jcfg, _, _ = moe
+    tparams, taxes = TF.init_lm(cfg, torch.Generator().manual_seed(0), CPU)
+    jparams, jaxes = JTF.init_lm(jcfg, jax.random.PRNGKey(0))
+    assert taxes == jaxes and "moe" in taxes["blocks"]
+    tl = jax.tree_util.tree_leaves(to_numpy(tparams))
+    jl = jax.tree_util.tree_leaves(jparams)
+    assert [a.shape for a in tl] == [a.shape for a in jl]
+    assert tparams["blocks"]["moe"]["wi_gate"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch", ["gemma3_4b", "qwen2_vl_72b",
+                                  "seamless_m4t_medium"])
 def test_unported_families_raise(arch):
     cfg = reduced_config(get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
