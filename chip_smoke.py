@@ -19,11 +19,13 @@ Phases, each of which exits non-zero on failure:
      on its cluster-split route at the decode shape and at a long context
      (up to 32768 positions), beside the CUDA-core kernel it replaced; the
      host time of one wrapper call of each kernel at its main-path shape;
-     then
-     reduced TinyLlama, granite-MoE, DBRX, RWKV6 and Zamba2 models on the
-     card (the kernels) held against the CPU path (their plain versions)
-     in fp32, for the MoE family with its load-balance loss (and, once, a
-     MoE layer that drops tokens);
+     flash also at SeamlessM4T's four uses (encoder, decoder
+     self-attention, cross-attention at prefill and at decode, Sq 1), drawn
+     from a generator of their own; then
+     reduced TinyLlama, granite-MoE, DBRX, RWKV6, Zamba2 and SeamlessM4T
+     models on the card (the kernels) held against the CPU path (their
+     plain versions) in fp32, for the MoE family with its load-balance loss
+     (and, once, a MoE layer that drops tokens);
   4. the TinyLlama path: full-width TinyLlama (random weights from the
      seed) -- prefill of 8 x 512 tokens through the bf16 flash kernel, dense
      decode, then paged decode through the paged kernel (every launch on
@@ -50,7 +52,15 @@ Phases, each of which exits non-zero on failure:
      the tokens whose top-K expert sets differ between the dense and the
      paged step counted per layer, then BatchScheduler as in phase 5;
  10. dbrx_132b at full width with 4 of its 40 layers through the same
-     path, and its peak device memory during init and during the run.
+     path, and its peak device memory during init and during the run;
+ 11. seamless_m4t_medium at full width and depth: 8 x 512 frames encoded
+     and a decoder prompt of 64 tokens prefilled (36 flash launches on the
+     tensor-core route), 8 decode steps eager and from a CUDA graph (12
+     flash launches a step, at Sq 1), each held against the last logits of
+     a prefill of the longer prompt over the same frames, the same steps
+     with every sequence's cross K/V swapped for its neighbour's (a planted
+     fault that must fail that limit), profiles, BatchScheduler captured
+     and eager, and the peak device memory.
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
 """
@@ -138,7 +148,24 @@ GLA_SIMT_BEFORE_MS = 1.2745
 # H100 measured at most 0.2578 (rwkv6_7b, 32 layers) and 0.0469
 # (zamba2_1p2b) over two draws of seed-0 weights; these allow 3.5 times
 # that, as TOL_PAGED_LOGITS does.
-TOL_CONT_LOGITS = {"rwkv6_7b": 0.9, "zamba2_1p2b": 0.17}
+# seamless_m4t_medium (12 + 12 layers, 64-token prompt over 512 frames):
+# the decode step's self-attention is plain torch over the cache where the
+# prefill's is the flash kernel, its cross-attention the kernel at Sq 1
+# where the prefill's is at Sq 64 + n, and its matmuls have 8 rows.  An
+# H100 measured at most 0.0469 over seeds 0-3 (scripts/seamless_cont_gate.py;
+# mean |logit| 0.80), and at least 1.0449 with every sequence's cross K/V
+# rolled to its neighbour's (the planted fault of phase 11); this allows
+# 3.5 times the first.
+TOL_CONT_LOGITS = {"rwkv6_7b": 0.9, "zamba2_1p2b": 0.17,
+                   "seamless_m4t_medium": 0.17}
+# seamless_m4t_medium, phase 11: frames, decoder prompt and decode steps.
+SEAMLESS = dict(B=8, S_enc=512, S=64, steps=8)
+# B, Sq, Sk, Hq, Hkv, D, causal, use: the flash calls of SeamlessM4T at
+# phase 11's shapes (16 heads of 64, G 1, q_offset 0).
+FLASH_SEAMLESS = [(8, 512, 512, 16, 16, 64, False, "encoder"),
+                  (8, 64, 64, 16, 16, 64, True, "decoder self-attention"),
+                  (8, 64, 512, 16, 16, 64, False, "cross-attention, prefill"),
+                  (8, 1, 512, 16, 16, 64, False, "cross-attention, decode")]
 
 
 def log(msg: str) -> None:
@@ -217,7 +244,7 @@ def flash_pairs(Sq, Sk, causal, window, q_offset) -> int:
     return int(m.sum())
 
 
-def check_flash(gen, timer) -> dict:
+def check_flash(gen, timer, seed) -> dict:
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ops import flash_attention_xla
 
@@ -235,13 +262,20 @@ def check_flash(gen, timer) -> dict:
              (8, 512, 512, 24, 8, 64, True, None, bf16, False),
              (8, 512, 512, 48, 8, 128, True, None, bf16, False),
              (8, 512, 512, 32, 4, 64, True, None, fp32, False)]
+    # SeamlessM4T's calls (bf16, SDPA timed) draw from a generator of
+    # their own, so that the later phases draw the same weights as before
+    # they were added.
+    seamless = torch.Generator(device="cuda").manual_seed(seed)
+    cases = ([c + (gen, None) for c in cases]
+             + [(B, Sq, Sk, Hq, Hkv, D, causal, None, bf16, True, seamless, use)
+                for B, Sq, Sk, Hq, Hkv, D, causal, use in FLASH_SEAMLESS])
     tol = {bf16: TOL_BF16, fp32: TOL_FP32}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows, first = [], None
-    for B, Sq, Sk, Hq, Hkv, D, causal, window, dtype, time_sdpa in cases:
-        q = torch.randn(B, Sq, Hq, D, generator=gen, device="cuda").to(dtype)
-        k = torch.randn(B, Sk, Hkv, D, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(B, Sk, Hkv, D, generator=gen, device="cuda").to(dtype)
+    for B, Sq, Sk, Hq, Hkv, D, causal, window, dtype, time_sdpa, g, use in cases:
+        q = torch.randn(B, Sq, Hq, D, generator=g, device="cuda").to(dtype)
+        k = torch.randn(B, Sk, Hkv, D, generator=g, device="cuda").to(dtype)
+        v = torch.randn(B, Sk, Hkv, D, generator=g, device="cuda").to(dtype)
         kw = dict(causal=causal, window=window, q_offset=0 if causal else None)
         first = first or (q, k, v, kw)
         before = dict(flash_attention_cuda.launches_by_route)
@@ -271,7 +305,8 @@ def check_flash(gen, timer) -> dict:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             row["library_ms"] = timer.ms(
                 lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True))
-        log(f"flash {row['case']} route {routed}: max|err| {err:.3e} (tol "
+        log(f"flash {row['case']}{f' (SeamlessM4T {use})' * bool(use)} "
+            f"route {routed}: max|err| {err:.3e} (tol "
             f"{tol[dtype]}) kernel {row['ms']:.4f} ms plain "
             f"{row['plain_ms']:.4f} ms library {row['library_ms']} ms bound "
             f"{bnd:.4f} ms ({by})")
@@ -296,14 +331,16 @@ def sass_count(lib: Path, opcode: str) -> int:
     return len(re.findall(rf"\b{opcode}\.", sass))
 
 
-def timed_prefill(api, params, tokens, S, cache_len, kernels, want):
+def timed_prefill(api, params, tokens, S, cache_len, kernels, want,
+                  extra=None):
     """Warm up (the first call of each matmul shape pays one-time library
     set-up that a serving process pays once), set the ``kernels``' launch
-    counts to 0, then time one prefill of ``tokens[:, :S]`` and hold the
-    counts to ``want`` and the logits to their shape.  Returns (logits,
-    cache, seconds, counts)."""
+    counts to 0, then time one prefill of ``tokens[:, :S]`` (and the batch
+    entries ``extra``, such as frames) and hold the counts to ``want`` and
+    the logits to their shape.  Returns (logits, cache, seconds, counts)."""
     cfg, dev = api.cfg, api.device
-    _, warm = api.prefill(params, {"tokens": tokens[:, :S]}, cache_len=cache_len)
+    batch = {"tokens": tokens[:, :S], **(extra or {})}
+    _, warm = api.prefill(params, batch, cache_len=cache_len)
     api.decode_step(params, warm, S, tokens[:, S:S + 1])
     del warm
     for fn in kernels.values():
@@ -312,8 +349,7 @@ def timed_prefill(api, params, tokens, S, cache_len, kernels, want):
             fn.launches_by_route[r] = 0
     sync(dev)
     t0 = time.perf_counter()
-    logits, cache = api.prefill(params, {"tokens": tokens[:, :S]},
-                                cache_len=cache_len)
+    logits, cache = api.prefill(params, batch, cache_len=cache_len)
     sync(dev)
     seconds = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in kernels.items()}
@@ -610,11 +646,13 @@ def check_reduced_against_cpu(arch: str, seed: int) -> None:
                          "path (or its MoE check dropped no token)")
 
 
-def check_reduced_ssm_against_cpu(arch: str, seed: int) -> None:
+def check_reduced_api_against_cpu(arch: str, seed: int) -> None:
     """A reduced ``arch`` (rwkv6_7b: 4 layers; zamba2_1p2b: 5 Mamba2 layers
-    and a shared attention block every 2) in fp32: the card (gla_scan and
+    and a shared attention block every 2; seamless_m4t_medium: 2 encoder
+    and 2 decoder layers over 24 frames) in fp32: the card (gla_scan and
     flash kernels) against the CPU path (their plain versions) on the same
-    weights and tokens, prefill and 4 decode steps."""
+    weights and inputs, through the registry's forward, prefill and 4
+    decode steps."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models.registry import build_model
 
@@ -622,17 +660,22 @@ def check_reduced_ssm_against_cpu(arch: str, seed: int) -> None:
     params, _ = build_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
     tok = torch.randint(0, cfg.vocab_size, (2, 20),
                         generator=torch.Generator().manual_seed(seed))
+    extra = {}
+    if cfg.family == "encdec":
+        extra["frames"] = torch.randn(
+            2, 24, cfg.d_model, generator=torch.Generator().manual_seed(seed + 1))
     outs = {}
     for dev in ("cpu", "cuda"):
         api, p, t = build_model(cfg, dev), tree_to(params, dev, torch.float32), tok.to(dev)
-        logits, state = api.prefill(p, {"tokens": t[:, :16]}, cache_len=20)
-        seq = [logits]
+        batch = {k: v.to(dev) for k, v in extra.items()}
+        logits, state = api.prefill(p, {"tokens": t[:, :16], **batch}, cache_len=20)
+        seq = [api.forward(p, {"tokens": t, **batch})[0], logits]
         for i in range(16, 20):
             logits, state = api.decode_step(p, state, i, t[:, i:i + 1])
             seq.append(logits)
         outs[dev] = [x.float().cpu() for x in seq]
     worst = max(max_err(a, b) for a, b in zip(outs["cpu"], outs["cuda"]))
-    log(f"reduced {arch}, card vs CPU path (fp32, prefill + 4 decode steps): "
+    log(f"reduced {arch}, card vs CPU path (fp32, forward, prefill + 4 decode steps): "
         f"max|err| {worst:.3e} (tol {TOL_FP32})")
     if worst > TOL_FP32:
         raise SystemExit(f"reduced {arch} on the card disagrees with the CPU path")
@@ -942,6 +985,138 @@ def ssm_path(api, params, gen, gla_cuda, flash_cuda, B=8, S=512,
     return counts
 
 
+def seamless_inputs(cfg, gen, B, S_enc, n):
+    """Seeded normal frames (B, S_enc, d_model) and n decoder tokens, on
+    the generator's device."""
+    frames = torch.randn(B, S_enc, cfg.d_model, generator=gen, device=gen.device)
+    tokens = torch.randint(0, cfg.vocab_size, (B, n), generator=gen,
+                           device=gen.device)
+    return frames, tokens
+
+
+def roll_cross(cache) -> None:
+    """The planted fault of phase 11, in place: every sequence's cross K/V
+    swapped for its neighbour's (rolled one along the batch axis), so each
+    attends to another source."""
+    for name in ("cross_k", "cross_v"):
+        cache[name].copy_(cache[name].roll(1, dims=1))
+
+
+def decode_logits(step, params, state, tokens, S, steps) -> torch.Tensor:
+    """Float logits of ``steps`` decode steps of ``step`` from ``state``."""
+    out = []
+    for t in range(S, S + steps):
+        lg, state = step(params, state, t, tokens[:, t:t + 1])
+        out.append(lg.float())
+    return torch.stack(out)
+
+
+def prefill_logits(api, params, frames, tokens, S, steps, cache_len):
+    """Last logits of prefill(S + n) over the same frames, n = 1..steps."""
+    return torch.stack([
+        api.prefill(params, {"tokens": tokens[:, :S + n], "frames": frames},
+                    cache_len=cache_len)[0].float()
+        for n in range(1, steps + 1)])
+
+
+def seamless_step_bound(params, cache) -> tuple[float, str]:
+    """A lower bound on an encdec decode step in ms, and what it counts: the
+    decoder's and the unembedding's weights, the cross K/V and the self K/V
+    cache, each read once (the embedding reads B rows, left out)."""
+    from repro_torch.serve.engine import tree_leaves
+
+    def gb(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree)) / 1e9
+
+    parts = {"decoder + unembedding weights": gb(
+                 [params["decoder"], params["embedding"]["unembed"],
+                  params["final_norm"]]),
+             "cross K/V": gb([cache["cross_k"], cache["cross_v"]]),
+             "self K/V": gb([cache["k"], cache["v"]])}
+    ms = {k: v * 1e9 / H100_BYTES_PER_S * 1e3 for k, v in parts.items()}
+    what = " + ".join(f"{k} {parts[k]:.3f} GB ({ms[k]:.3f} ms)" for k in parts)
+    return sum(ms.values()), f"bound ({what}) read once"
+
+
+def seamless_path(api, params, gen, flash_cuda, B, S_enc, S, steps) -> None:
+    """seamless_m4t_medium: encode B x S_enc frames and prefill an S-token
+    prompt (every flash launch on wgmma: encoder, decoder self-attention,
+    cross-attention), ``steps`` decode steps eager and from a DecodeGraph
+    (bit-equal; flash once a layer at Sq 1), each held against the last
+    logits of prefill(S + n) over the same frames, then the captured steps
+    again with the cross K/V rolled one sequence (the planted fault, which
+    must fail that limit), and profiles."""
+    from repro_torch.serve.engine import DecodeGraph, tree_clone, tree_leaves
+
+    cfg, dev = api.cfg, api.device
+    Ld = cfg.decoder_layers
+    cache_len = S + steps + 1
+    frames, tokens = seamless_inputs(cfg, gen, B, S_enc, S + steps)
+    want = {"flash_attention": cfg.encoder_layers + 2 * Ld}
+    with torch.inference_mode():
+        _, cache, prefill_s, counts = timed_prefill(
+            api, params, tokens, S, cache_len, {"flash_attention": flash_cuda},
+            want, extra={"frames": frames})
+        state0 = tree_clone(cache)
+        before = dict(flash_cuda.launches_by_route)
+        sync(dev)
+        t0 = time.perf_counter()
+        decoded = decode_logits(api.decode_step, params, cache, tokens, S, steps)
+        sync(dev)
+        decode_s = (time.perf_counter() - t0) / steps
+        routes = {r: n - before[r] for r, n in flash_cuda.launches_by_route.items()}
+        if routes != {r: Ld * steps * (r == "wgmma") for r in routes}:
+            raise SystemExit(f"{cfg.name} decode flash launches {routes}, want "
+                             f"{Ld} a step on wgmma")
+        before = dict(flash_cuda.launches_by_route)
+        g, state_g, graph_ms, first_s, _ = graph_decode(
+            f"{cfg.name} decode graph", api.decode_step, params, state0, tokens,
+            S, list(decoded))
+        captured = {r: n - before[r] for r, n in flash_cuda.launches_by_route.items()}
+        n_cap = Ld * (DecodeGraph.WARMUP + 1)
+        if captured != {r: n_cap * (r == "wgmma") for r in captured}:
+            raise SystemExit(f"{cfg.name} decode graph: flash launches {captured}, "
+                             f"want {n_cap} on wgmma at the first call, none on "
+                             "replays")
+        full = prefill_logits(api, params, frames, tokens, S, steps, cache_len)
+        for dst, src in zip(tree_leaves(state_g), tree_leaves(state0)):
+            dst.copy_(src)
+        roll_cross(state_g)
+        faulted = decode_logits(g, params, state_g, tokens, S, steps)
+    cont, fault = near_tie(full, decoded), near_tie(full, faulted)
+    tol = TOL_CONT_LOGITS[cfg.name]
+    log(f"{cfg.name} enc L{cfg.encoder_layers} dec L{Ld} d{cfg.d_model}: encode "
+        f"{B}x{S_enc} frames + prefill {B}x{S} {prefill_s * 1e3:.3f} ms, decode "
+        f"eager {decode_s * 1e3:.3f} ms/step, graph {graph_ms:.3f} ms/step "
+        f"(first call {first_s * 1e3:.1f} ms; replayed logits equal to the "
+        f"eager ones bit for bit, twice over), prefill launches {counts}, "
+        f"decode flash launches {Ld} a step (Sq 1), {n_cap} at the graph's "
+        "first call, none on replays")
+    for what, (err, same, n_tok, gap) in (("", cont), (
+            ", cross K/V rolled one sequence (planted fault)", fault)):
+        log(f"{cfg.name} prefill({S}) + n decode steps vs prefill({S}+n), n = "
+            f"1..{steps}{what}: max|err| {err:.4f} (limit {tol}; mean |logit| "
+            f"{full.abs().mean().item():.4f}, largest {full.abs().max().item():.4f}); "
+            f"greedy tokens equal {same}/{n_tok}, largest prefill-logit gap "
+            f"where they differ {gap:.4f}")
+    if not (torch.isfinite(decoded).all() and cont[0] <= tol and cont[3] <= tol):
+        raise SystemExit(f"{cfg.name} decode does not continue its prefill")
+    if fault[0] <= tol:
+        raise SystemExit(f"{cfg.name}: the planted fault passes the limit {tol}")
+    if dev.type == "cuda":
+        bound, what = seamless_step_bound(params, cache)
+        with torch.inference_mode():
+            profile_steps(f"{cfg.name} prefill", lambda t: api.prefill(
+                params, {"tokens": tokens[:, :S], "frames": frames},
+                cache_len=cache_len), 0, 2)
+            profile_steps(f"{cfg.name} decode", lambda t: api.decode_step(
+                params, cache, t, tokens[:, t:t + 1]), S + steps - 2, 2,
+                bound, what)
+            profile_steps(f"{cfg.name} decode graph", lambda t: g(
+                params, state_g, t, tokens[:, t:t + 1]), S + steps - 2, 2,
+                bound, what)
+
+
 def weights_ms(params) -> float:
     """A lower bound on a decode step's time in ms: its weights read once
     over the card's memory rate (the cache it also reads is left out)."""
@@ -952,10 +1127,12 @@ def weights_ms(params) -> float:
 
 
 def profile_steps(label: str, step, t0: int, n: int,
-                  bound: float | None = None) -> None:
+                  bound: float | None = None,
+                  bound_what: str = "weights read once") -> None:
     """Device busy share and kernel launches of ``n`` steps, from a
     torch.profiler trace (the positions rewrite what the steps wrote),
-    beside ``bound``, a lower bound on the step's time in ms, where given.  Busy time sums
+    beside ``bound``, a lower bound on the step's time in ms (``bound_what``
+    says what it counts), where given.  Busy time sums
     the device's own events only: a CPU op's self device time repeats that
     of the kernels it launched."""
     from torch.autograd import DeviceType
@@ -988,7 +1165,7 @@ def profile_steps(label: str, step, t0: int, n: int,
         f"(idle {100 * (1 - busy / wall):.1f}%), {launches:.0f} kernel launches, "
         f"{graphs:.0f} graph launches, {kernel_count:.0f} device events"
         + ("" if bound is None else
-           f"; weights read once {bound:.3f} ms ({busy / bound:.1f}x in busy time)")
+           f"; {bound_what} {bound:.3f} ms ({busy / bound:.1f}x in busy time)")
         + "; top: "
         + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / n:.3f} ms"
                     for e in top)
@@ -1143,14 +1320,14 @@ def main() -> int:
     # 3. kernels against plain versions
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     timer = Timer()
-    flash = check_flash(gen, timer)
+    flash = check_flash(gen, timer, args.seed)
     paged_row = check_paged(gen, timer)
     gla_row = check_gla(gen, timer)
     del timer
     for arch in ("tinyllama_1p1b",) + MOE_ARCHS:
         check_reduced_against_cpu(arch, args.seed)
-    for arch in ("rwkv6_7b", "zamba2_1p2b"):
-        check_reduced_ssm_against_cpu(arch, args.seed)
+    for arch in ("rwkv6_7b", "zamba2_1p2b", "seamless_m4t_medium"):
+        check_reduced_api_against_cpu(arch, args.seed)
 
     # 4. main path at full width
     cfg = get_config("tinyllama_1p1b")
@@ -1218,6 +1395,23 @@ def main() -> int:
         del api, params
         torch.cuda.empty_cache()
         log(f"{arch} phase {time.perf_counter() - t_phase:.1f} s")
+
+    # 11. the encoder-decoder at full width and depth
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    api = build_model(get_config("seamless_m4t_medium"))
+    params, _ = api.init(gen)
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    seamless_path(api, params, gen, flash_attention_cuda, **SEAMLESS)
+    log(f"seamless_m4t_medium: weights {weights_ms(params) * H100_BYTES_PER_S / 1e12:.3f} "
+        f"GB; peak device memory {init_peak:.3f} GiB during init, "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB during encode, "
+        "prefill and decode")
+    serve_batch(api, params, f"{name} ({card})")
+    del api, params
+    torch.cuda.empty_cache()
+    log(f"seamless_m4t_medium phase {time.perf_counter() - t_phase:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     entries = []

@@ -311,6 +311,12 @@ EncodeTiled encode_tiled() {
 
 // A (B, S, H, D) bf16 tensor as a 4-D TMA map, innermost first (D, H, S, B),
 // whose box is `rows` positions of one head by 64 columns (all D at D 32).
+// The maps are encoded on the host at each launch and passed by value as
+// __grid_constant__ parameters, so a CUDA graph that captures a launch
+// keeps the maps, and with them the addresses of q, k and v at the
+// capture.  That is right only because a captured decode step is replayed
+// on the tensors it was captured on (serve/engine.py::DecodeGraph refuses
+// any other); a replay on new tensors would read the old ones.
 bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int rows) {
   const int cols = D < 64 ? D : 64;
   const cuuint64_t s = S > 0 ? S : 1;  // no load is issued when S is 0
@@ -326,6 +332,20 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int
 }
 
 template <int D>
+constexpr int smem_bytes() {
+  return sizeof(Smem<D>) + 1024;  // + alignment slack
+}
+
+// Lets the instance for D use its dynamic shared memory: a setting of the
+// function, not of a launch, made once before the first launch (never
+// inside a stream capture).
+template <int D>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(flash_attention_wgmma_kernel<D>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+}
+
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                    int Sk, int Hq, int Hkv, int causal, int window, int q_offset,
                    float scale, cudaStream_t stream) {
@@ -333,12 +353,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   if (!make_map(&q_map, q, B, Sq, Hq, D, kBM) || !make_map(&k_map, k, B, Sk, Hkv, D, kBN) ||
       !make_map(&v_map, v, B, Sk, Hkv, D, kBN))
     return cudaErrorInvalidValue;
-  const int smem = sizeof(Smem<D>) + 1024;  // + alignment slack
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid(B * Hq, (Sq + kBM - 1) / kBM);
-  flash_attention_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_attention_wgmma_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
       q_map, k_map, v_map, static_cast<bf16*>(out), Sq, Sk, Hq, Hq / Hkv, causal, window,
       q_offset, scale * 1.4426950408889634f);
   return cudaGetLastError();
@@ -346,8 +362,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 
 }  // namespace
 
+// Once per process and device, before the first launch: raises each
+// instance's dynamic shared-memory limit to what it uses.  Returns a
+// cudaError_t.
+extern "C" int flash_attention_wgmma_setup() {
+  cudaError_t err = allow_smem<32>();
+  if (err == cudaSuccess) err = allow_smem<64>();
+  if (err == cudaSuccess) err = allow_smem<128>();
+  return static_cast<int>(err);
+}
+
 // bf16 q, k, v, out; window <= 0 means no window.  Returns a cudaError_t.
-// Head dims 32, 64 and 128 are compiled.
+// Head dims 32, 64 and 128 are compiled; flash_attention_wgmma_setup must
+// have run on the current device.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
                                             void* out, int B, int Sq, int Sk, int Hq,
                                             int Hkv, int D, int causal, int window,

@@ -15,7 +15,9 @@ Both keep the fp32 online softmax with the finite mask value -1e30, skip
 key tiles wholly masked by the causal frontier or the window, and take
 ragged ``Sq`` and ``Sk``.  Any other dtype or head dim raises before a
 library is built or loaded.  No backward yet: a call that autograd would
-record raises.
+record raises.  A launch sets nothing on the device, so a CUDA graph can
+capture it: the wgmma kernel's shared-memory limit is raised once per
+device by ``flash_attention_wgmma_setup`` at the first call.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ HEAD_DIMS = (32, 64, 128)   # the head dims both sources compile
 # route -> (library, C entry point)
 _LIBS = {"wgmma": ("flash_attention_wgmma", "flash_attention_wgmma_launch"),
          "simt": ("flash_attention", "flash_attention_launch")}
+_wgmma_ready: set[int] = set()   # devices whose shared-memory limit is set
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -79,6 +82,12 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     lib, symbol = _LIBS[kind]
     fn = _build.function(lib, symbol, _ARGTYPES)
     with torch.cuda.device(q.device):
+        if kind == "wgmma" and q.device.index not in _wgmma_ready:
+            # once per device, at the first call, never inside a capture
+            # (DecodeGraph's warm-up makes that first call)
+            setup = _build.function(lib, "flash_attention_wgmma_setup", [])
+            _build.check(lib, setup())
+            _wgmma_ready.add(q.device.index)
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   B, Sq, Sk, Hq, Hkv, D, int(causal), window or 0,
                   int(q_offset), float(scale),

@@ -2,11 +2,13 @@
 
 Port of ``repro.models.registry``.  ``build_model(cfg, device)`` returns a
 :class:`ModelAPI` with the JAX package's members; ``input_specs`` returns
-meta-device tensors in place of ``ShapeDtypeStruct``.  The dense and
-MoE transformer (whose ``loss_fn`` adds 0.01 x the summed load-balance
-loss, as the JAX package's), ssm (RWKV6) and hybrid (Zamba2) families are
-ported; the others raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+meta-device tensors in place of ``ShapeDtypeStruct``.  Ported: the dense
+and MoE transformer (whose ``loss_fn`` adds 0.01 x the summed load-balance
+loss, as the JAX package's), ssm (RWKV6), hybrid (Zamba2) and encdec
+(SeamlessM4T: batches carry ``frames``, and ``init_cache`` takes an
+``enc_len`` that defaults to ``cache_len``).  The vlm family and the
+transformer's ``local_global`` pattern raise ``NotImplementedError``
+naming their ROADMAP.md item (``transformer.check_supported``).
 """
 
 from __future__ import annotations
@@ -18,13 +20,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import ssm_stack as SS
 from repro_torch.models import transformer as TF
 
-_NOT_PORTED = {
-    "encdec": "Queue 1 item 9",
-}
+DEC_PREFILL_FRAC = 8   # encdec prefill specs: a decoder prompt of seq_len / 8
 
 
 def cross_entropy(logits, labels):
@@ -47,7 +48,7 @@ class ModelAPI:
     init: Callable          # (generator) -> (params, axes)
     forward: Callable       # (params, batch) -> (logits, aux)
     loss_fn: Callable       # (params, batch) -> (loss, metrics)
-    init_cache: Callable    # (batch, cache_len) -> cache dict
+    init_cache: Callable    # (batch, cache_len[, enc_len]) -> cache dict
     prefill: Callable       # (params, batch) -> (logits, cache)
     decode_step: Callable   # (params, cache, kv_len, token) -> (logits, cache)
     input_specs: Callable   # (ShapeConfig) -> dict of meta tensors
@@ -80,13 +81,28 @@ def _decode_specs(batch: int, cache) -> dict:
     return {"token": _meta((batch, 1)), "kv_len": _meta(()), "cache": cache}
 
 
+def _encdec_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The reference's encdec shapes: bf16 frames (B, S, d) beside the
+    tokens; a decoder prompt of S / 8 at prefill; a decode cache of S + 1
+    positions over S frames."""
+    B, S = shape.global_batch, shape.seq_len
+    frames = _meta((B, S, cfg.d_model), torch.bfloat16)
+    if shape.kind == "train":
+        return {**_token_specs(shape), "frames": frames}
+    if shape.kind == "prefill":
+        return {"tokens": _meta((B, max(1, S // DEC_PREFILL_FRAC))),
+                "frames": frames}
+    return _decode_specs(B, ED.encdec_init_cache(cfg, B, S + 1, S,
+                                                 device="meta"))
+
+
 @dataclasses.dataclass(frozen=True)
 class _Family:
     """What a family supplies; :func:`build_model` binds cfg and device."""
     forward: Callable       # (params, cfg, batch) -> (logits, aux)
     prefill: Callable       # (params, cfg, batch, cache_len) -> (logits, cache)
     decode_step: Callable   # (params, cfg, cache, kv_len, token) -> (logits, cache)
-    state: Callable         # (cfg, batch, cache_len, device) -> cache
+    state: Callable         # (cfg, batch, cache_len, device[, enc_len]) -> cache
     init: Callable          # (cfg, generator, device) -> (params, axes)
 
 
@@ -112,16 +128,20 @@ _FAMILIES = {
         HY.hybrid_decode_step,
         lambda cfg, B, n, device: HY.hybrid_state(cfg, B, n, device=device),
         HY.init_hybrid_lm),
+    "encdec": _Family(
+        lambda p, cfg, b: ED.encdec_forward(p, cfg, b["tokens"], b["frames"]),
+        lambda p, cfg, b, n: ED.encdec_prefill(p, cfg, b["tokens"],
+                                               b["frames"], cache_len=n),
+        ED.encdec_decode_step,
+        lambda cfg, B, n, device, enc_len=None: ED.encdec_init_cache(
+            cfg, B, n, enc_len or n, device=device),
+        ED.init_encdec),
 }
 
 
 def build_model(cfg: ModelConfig,
                 device: str | torch.device = "cuda") -> ModelAPI:
     fam = cfg.family
-    if fam in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {fam!r} is not ported yet "
-            f"(ROADMAP.md, {_NOT_PORTED[fam]})")
     if fam not in _FAMILIES:
         raise ValueError(f"unknown family {fam}")
     f = _FAMILIES[fam]
@@ -132,8 +152,9 @@ def build_model(cfg: ModelConfig,
     def forward(params, batch):
         return f.forward(params, cfg, batch)
 
-    def init_cache(batch: int, cache_len: int):
-        return f.state(cfg, batch, cache_len, device)
+    def init_cache(batch: int, cache_len: int, enc_len: int | None = None):
+        extra = () if enc_len is None else (enc_len,)   # encdec only
+        return f.state(cfg, batch, cache_len, device, *extra)
 
     def prefill(params, batch, cache_len=None):
         return f.prefill(params, cfg, batch, cache_len)
@@ -142,6 +163,8 @@ def build_model(cfg: ModelConfig,
         return f.decode_step(params, cfg, cache, kv_len, token)
 
     def input_specs(shape: ShapeConfig):
+        if fam == "encdec":
+            return _encdec_specs(cfg, shape)
         if shape.kind in ("train", "prefill"):
             return _token_specs(shape)
         # decode: one token and the state of a seq_len + 1 cache

@@ -24,6 +24,19 @@ FA_MOE_CASES = [
     (1, 192, 192, 12, 2, 128, True, None),
     (1, 100, 100, 12, 2, 128, True, None),
 ]
+# B, Sq, Sk, Hq, Hkv, D, causal, window: the encoder-decoder's
+# cross-attention (SeamlessM4T: G 1, never causal), one query against the
+# source as at decode, a prompt shorter than the source as at prefill, and
+# the encoder's Sq = Sk, at D 32 (the reduced config) and 64 (the full one),
+# off the 64-row and 64-key tile grids.
+FA_ENCDEC_CASES = [
+    (2, 1, 96, 4, 4, 32, False, None),
+    (2, 16, 100, 4, 4, 32, False, None),
+    (2, 130, 130, 4, 4, 32, False, None),
+    (2, 1, 96, 4, 4, 64, False, None),
+    (2, 16, 100, 4, 4, 64, False, None),
+    (2, 130, 130, 4, 4, 64, False, None),
+]
 # B, Hq, Hkv, D, pool_pages, page, max_pages  (PA_CASES of tests/test_kernels.py)
 PA_CASES = [
     (2, 8, 2, 64, 16, 16, 4),

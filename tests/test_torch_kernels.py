@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (FA_CASES, FA_MOE_CASES, PA_CASES, TOL, fa_inputs,
+from _torch_cases import (FA_CASES, FA_ENCDEC_CASES, FA_MOE_CASES, PA_CASES, TOL, fa_inputs,
                           pa_inputs)
 from repro.kernels.flash_attention.ops import flash_attention_xla as jax_fa_xla
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
@@ -59,13 +59,21 @@ def test_flash_attention_xla_matches_jax_at_moe_heads(case, dtype):
     _flash_xla_matches_jax(case, dtype)
 
 
-def _flash_xla_matches_jax(case, dtype):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_ENCDEC_CASES)
+def test_flash_attention_xla_matches_jax_at_encdec_shapes(case, dtype):
+    """Cross-attention as the encoder-decoder calls it: not causal,
+    q_offset 0, Sq != Sk (Sq 1 at decode)."""
+    _flash_xla_matches_jax(case, dtype, q_offset=0)
+
+
+def _flash_xla_matches_jax(case, dtype, q_offset=None):
     B, Sq, Sk, Hq, Hkv, D, causal, window = case
     (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in fa_inputs(case))
     ref = jax_fa_xla(jq, jk, jv, causal=causal, window=window,
-                     block_q=64, block_k=64)
+                     q_offset=q_offset, block_q=64, block_k=64)
     out = flash_attention_xla(tq, tk, tv, causal=causal, window=window,
-                              block_q=64, block_k=64)
+                              q_offset=q_offset, block_q=64, block_k=64)
     assert out.dtype == tq.dtype and out.shape == tq.shape
     np.testing.assert_allclose(_np(out), _np(ref), atol=TOL[dtype],
                                rtol=TOL[dtype])
