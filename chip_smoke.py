@@ -7,9 +7,11 @@ Phases, each of which exits non-zero on failure:
   1. setup: the card's name and power limit, torch and CUDA versions, TF32
      off for matmuls and cuDNN;
   2. build the six CUDA libraries from src/repro_torch/csrc (one nvcc
-     each, all started together) into build/torch_kernels/, and count the
-     tensor-core instructions in the SASS of the bf16 flash library (HGMMA)
-     and of the bf16 gla_scan library (HMMA);
+     each, all started together) into build/torch_kernels/, count the
+     tensor-core instructions in the SASS of the bf16 flash library (HGMMA,
+     also in its D 320 instance alone) and of the bf16 gla_scan library
+     (HMMA), and print ptxas's registers and spills of both flash
+     libraries' D 320 instances;
   3. each kernel against its plain PyTorch version at the main paths'
      shapes (flash and paged also at granite-MoE's and DBRX's heads):
      max |err| beside the tolerance, and kernel, plain, library
@@ -20,9 +22,12 @@ Phases, each of which exits non-zero on failure:
      (up to 32768 positions), beside the CUDA-core kernel it replaced; the
      host time of one wrapper call of each kernel at its main-path shape;
      flash also at SeamlessM4T's four uses (encoder, decoder
-     self-attention, cross-attention at prefill and at decode, Sq 1), drawn
-     from a generator of their own; then
-     reduced TinyLlama, granite-MoE, DBRX, RWKV6, Zamba2 and SeamlessM4T
+     self-attention, cross-attention at prefill and at decode, Sq 1) and at
+     gemma3_4b's (D 320, with its window of 1024 and without, bf16 and
+     fp32; SDPA timed with the window as a mask and its backend named),
+     each drawn from a generator of its own; then
+     reduced TinyLlama, granite-MoE, DBRX, RWKV6, Zamba2, SeamlessM4T and
+     gemma3_4b (with a tail)
      models on the card (the kernels) held against the CPU path (their
      plain versions) in fp32, for the MoE family with its load-balance loss
      (and, once, a MoE layer that drops tokens);
@@ -60,7 +65,16 @@ Phases, each of which exits non-zero on failure:
      a prefill of the longer prompt over the same frames, the same steps
      with every sequence's cross K/V swapped for its neighbour's (a planted
      fault that must fail that limit), profiles, BatchScheduler captured
-     and eager, and the peak device memory.
+     and eager, and the peak device memory;
+ 12. gemma3_4b at full width and depth (29 window layers and 5 global
+     ones, head dim 320): prefill of 8 x 1536 tokens into a 2048-position
+     cache (34 flash launches on the tensor-core route, 29 with the window
+     of 1024, 5 without), 8 decode steps eager and from a CUDA graph, each
+     held against the last logits of a prefill of the longer prompt and
+     the cache they leave against that prefill's (every ring slot), the
+     same steps from a ring rolled one slot (a planted fault that must fail
+     that test), profiles, BatchScheduler captured and eager, and the peak
+     device memory.
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
 """
@@ -156,8 +170,20 @@ GLA_SIMT_BEFORE_MS = 1.2745
 # mean |logit| 0.80), and at least 1.0449 with every sequence's cross K/V
 # rolled to its neighbour's (the planted fault of phase 11); this allows
 # 3.5 times the first.
+# gemma3_4b (34 layers, a 1536-token prompt, rings of 1024): the decode
+# step's attention is plain torch over the rings where the prefill's is the
+# flash kernel with the window, and its matmuls have 8 rows.  An H100
+# measured at most 0.1270 over seeds 0-3 (scripts/gemma3_cont_gate.py;
+# mean |logit| 0.81), and at least 0.5342 with the first local ring rolled
+# one slot (the planted fault of phase 12); this allows 3.5 times the first.
 TOL_CONT_LOGITS = {"rwkv6_7b": 0.9, "zamba2_1p2b": 0.17,
-                   "seamless_m4t_medium": 0.17}
+                   "seamless_m4t_medium": 0.17, "gemma3_4b": 0.44}
+# gemma3_4b: the cache that prefill(S) + n decode steps leave against the
+# cache of prefill(S + n), every ring slot and global position: rounding
+# alone moves a key by a few bf16 steps, a slot that holds another position
+# by a whole key.  An H100 measured at most 0.1094 over seeds 0-3 and at
+# least 7.9062 with the planted fault; this allows 3.5 times the first.
+TOL_CONT_CACHE = {"gemma3_4b": 0.38}
 # seamless_m4t_medium, phase 11: frames, decoder prompt and decode steps.
 SEAMLESS = dict(B=8, S_enc=512, S=64, steps=8)
 # B, Sq, Sk, Hq, Hkv, D, causal, use: the flash calls of SeamlessM4T at
@@ -166,6 +192,20 @@ FLASH_SEAMLESS = [(8, 512, 512, 16, 16, 64, False, "encoder"),
                   (8, 64, 64, 16, 16, 64, True, "decoder self-attention"),
                   (8, 64, 512, 16, 16, 64, False, "cross-attention, prefill"),
                   (8, 1, 512, 16, 16, 64, False, "cross-attention, decode")]
+# Reduced configs of check_reduced_api_against_cpu beyond reduced_config:
+# gemma3_4b with a tail (5 layers in groups of 2) and a window of 6, so that
+# its 16-token prompt wraps the rings (16 % 6 = 4) and the steps wrap them
+# again.
+REDUCED_CHANGES = {"gemma3_4b": dict(num_layers=5, group_size=2, window=6)}
+# gemma3_4b, phase 12: a prompt longer than the window and off its grid
+# (S % 1024 = 512, so the prefill's rings are rolled), a cache of 2048.
+GEMMA = dict(B=8, S=1536, cache_len=2048, steps=8)
+# B, Sq, Sk, Hq, Hkv, D, window, dtype name, use: the flash calls of
+# gemma3_4b's prefill at phase 12's shape (8 heads of 320 over 4, causal).
+FLASH_GEMMA = [(8, 1536, 1536, 8, 4, 320, 1024, "bfloat16", "local layers"),
+               (8, 1536, 1536, 8, 4, 320, None, "bfloat16", "global layers"),
+               (8, 1536, 1536, 8, 4, 320, 1024, "float32", "local layers"),
+               (8, 1536, 1536, 8, 4, 320, None, "float32", "global layers")]
 
 
 def log(msg: str) -> None:
@@ -245,6 +285,8 @@ def flash_pairs(Sq, Sk, causal, window, q_offset) -> int:
 
 
 def check_flash(gen, timer, seed) -> dict:
+    from torch.nn.attention import SDPBackend
+
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ops import flash_attention_xla
 
@@ -266,9 +308,14 @@ def check_flash(gen, timer, seed) -> dict:
     # their own, so that the later phases draw the same weights as before
     # they were added.
     seamless = torch.Generator(device="cuda").manual_seed(seed)
+    gemma = torch.Generator(device="cuda").manual_seed(seed)
     cases = ([c + (gen, None) for c in cases]
-             + [(B, Sq, Sk, Hq, Hkv, D, causal, None, bf16, True, seamless, use)
-                for B, Sq, Sk, Hq, Hkv, D, causal, use in FLASH_SEAMLESS])
+             + [(B, Sq, Sk, Hq, Hkv, D, causal, None, bf16, True, seamless,
+                 f"SeamlessM4T {use}")
+                for B, Sq, Sk, Hq, Hkv, D, causal, use in FLASH_SEAMLESS]
+             + [(B, Sq, Sk, Hq, Hkv, D, True, window, getattr(torch, dt), True,
+                 gemma, f"gemma3_4b {use}")
+                for B, Sq, Sk, Hq, Hkv, D, window, dt, use in FLASH_GEMMA])
     tol = {bf16: TOL_BF16, fp32: TOL_FP32}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows, first = [], None
@@ -301,15 +348,25 @@ def check_flash(gen, timer, seed) -> dict:
                    plain_ms=timer.ms(lambda: flash_attention_xla(q, k, v, **kw),
                                      iters=5),
                    bound_ms=bnd, bound_by=by, library_ms=None)
+        backend = ""
         if time_sdpa:  # the yardstick: one PyTorch call, never used by the port
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            row["library_ms"] = timer.ms(
-                lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True))
-        log(f"flash {row['case']}{f' (SeamlessM4T {use})' * bool(use)} "
+            sdpa_kw = dict(is_causal=causal, enable_gqa=True)
+            if window is not None:  # the causal window as a boolean mask
+                qpos = torch.arange(Sq, device="cuda")[:, None] + q_off
+                kpos = torch.arange(Sk, device="cuda")[None, :]
+                sdpa_kw = dict(attn_mask=(kpos <= qpos) & (kpos > qpos - window),
+                               enable_gqa=True)
+            row["library_ms"] = timer.ms(lambda: sdpa(qt, kt, vt, **sdpa_kw))
+            row["sdpa_backend"] = SDPBackend(torch._fused_sdp_choice(
+                qt, kt, vt, sdpa_kw.get("attn_mask"), 0.0,
+                sdpa_kw.get("is_causal", False), enable_gqa=True)).name
+            backend = f"; SDPA backend {row['sdpa_backend']}"
+        log(f"flash {row['case']}{f' ({use})' * bool(use)} "
             f"route {routed}: max|err| {err:.3e} (tol "
             f"{tol[dtype]}) kernel {row['ms']:.4f} ms plain "
             f"{row['plain_ms']:.4f} ms library {row['library_ms']} ms bound "
-            f"{bnd:.4f} ms ({by})")
+            f"{bnd:.4f} ms ({by}){backend}")
         rows.append(row)
     q, k, v, kw = first
     log(f"flash wrapper host time "
@@ -322,13 +379,29 @@ def check_flash(gen, timer, seed) -> dict:
     return rows[0]
 
 
-def sass_count(lib: Path, opcode: str) -> int:
-    """Instructions of ``opcode`` in the SASS of a built library."""
+def sass_count(lib: Path, opcode: str, marker: str = "") -> int:
+    """Instructions of ``opcode`` in the SASS of a built library, in the
+    functions whose mangled name holds ``marker`` (all by default)."""
     tool = shutil.which("cuobjdump") or str(
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
     sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
-    return len(re.findall(rf"\b{opcode}\.", sass))
+    functions = re.split(r"^\s*Function : ", sass, flags=re.M)[1:]
+    return sum(len(re.findall(rf"\b{opcode}\.", f)) for f in functions
+               if marker in f.split("\n", 1)[0])
+
+
+def ptxas_lines(log: str, marker: str) -> list[str]:
+    """The register and spill lines of ``ptxas -v`` for the entry functions
+    whose mangled name holds ``marker``."""
+    out, keep = [], False
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            keep = marker in entry.group(1)
+        elif keep and ("spill" in line or "Used" in line):
+            out.append(line.strip())
+    return out
 
 
 def timed_prefill(api, params, tokens, S, cache_len, kernels, want,
@@ -649,14 +722,15 @@ def check_reduced_against_cpu(arch: str, seed: int) -> None:
 def check_reduced_api_against_cpu(arch: str, seed: int) -> None:
     """A reduced ``arch`` (rwkv6_7b: 4 layers; zamba2_1p2b: 5 Mamba2 layers
     and a shared attention block every 2; seamless_m4t_medium: 2 encoder
-    and 2 decoder layers over 24 frames) in fp32: the card (gla_scan and
-    flash kernels) against the CPU path (their plain versions) on the same
-    weights and inputs, through the registry's forward, prefill and 4
-    decode steps."""
+    and 2 decoder layers over 24 frames; gemma3_4b: ``REDUCED_CHANGES``)
+    in fp32: the card (gla_scan and flash kernels) against the CPU path
+    (their plain versions) on the same weights and inputs, through the
+    registry's forward, prefill and 4 decode steps."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models.registry import build_model
 
-    cfg = reduced_config(get_config(arch))
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              **REDUCED_CHANGES.get(arch, {}))
     params, _ = build_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
     tok = torch.randint(0, cfg.vocab_size, (2, 20),
                         generator=torch.Generator().manual_seed(seed))
@@ -1117,6 +1191,149 @@ def seamless_path(api, params, gen, flash_cuda, B, S_enc, S, steps) -> None:
                 bound, what)
 
 
+def ring_fault(cache) -> None:
+    """The planted fault of phase 12, in place: the first local layer's
+    ring rolled by one slot, so that each position sits in the slot of the
+    next one and the decode steps overwrite the newest position where the
+    oldest should leave the window."""
+    for name in ("local_k", "local_v"):
+        cache[name][0, 0] = cache[name][0, 0].roll(1, dims=1)
+
+
+def ring_readings(api, params, cache, tokens, S, steps, cache_len,
+                  step=None) -> dict:
+    """The continuation test of phase 12 on a post-prefill(S) ``cache``:
+    ``steps`` decode steps of ``step`` (``api.decode_step`` by default)
+    against the last logits of prefill(S + n), n = 1..steps (``near_tie``),
+    and the cache the steps leave (every ring slot and global position)
+    against the cache of prefill(S + steps): max |err| per cache tensor.
+    A ring slot that holds another position than the reference's differs
+    by a whole key, where rounding moves it by a few bf16 steps."""
+    step = step or api.decode_step
+    decoded = decode_logits(step, params, cache, tokens, S, steps)
+    full = torch.stack([
+        api.prefill(params, {"tokens": tokens[:, :S + n]}, cache_len=cache_len)[0].float()
+        for n in range(1, steps + 1)])
+    _, ref_cache = api.prefill(params, {"tokens": tokens[:, :S + steps]},
+                               cache_len=cache_len)
+    return {"logits": near_tie(full, decoded),
+            "cache": {k: max_err(ref_cache[k], cache[k]) for k in ref_cache},
+            "decoded": decoded, "logit_abs": full.abs().mean().item(),
+            "logit_max": full.abs().max().item()}
+
+
+def gemma3_step_bound(params, cfg, B, cache_len, kv_len) -> tuple[float, str]:
+    """A lower bound on a local_global decode step in ms, and what it
+    counts: the weights, the window layers' rings and the global layers'
+    first ``kv_len + 1`` positions, each read once."""
+    from repro_torch.serve.engine import tree_leaves
+
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    n_global = cfg.num_layers // cfg.group_size
+    row = B * 2 * 2 * cfg.num_kv_heads * cfg.hd   # K and V of one position, bf16
+    parts = {"weights": weights,
+             "rings": (cfg.num_layers - n_global) * min(cfg.window, cache_len) * row,
+             "global K/V": n_global * (kv_len + 1) * row}
+    ms = {k: v / H100_BYTES_PER_S * 1e3 for k, v in parts.items()}
+    what = " + ".join(f"{k} {parts[k] / 1e9:.3f} GB ({ms[k]:.3f} ms)" for k in parts)
+    return sum(ms.values()), f"bound ({what}) read once"
+
+
+def gemma3_path(api, params, gen, flash_cuda, B, S, cache_len, steps) -> None:
+    """gemma3_4b: prefill B x S (every flash launch on wgmma at D 320: the
+    window layers' with the window, the global layers' without), ``steps``
+    decode steps eager and from a DecodeGraph (bit-equal; no flash), held
+    by ``ring_readings`` to prefill(S + n)'s logits and prefill(S +
+    steps)'s cache, then the captured steps again from a ring rolled one
+    slot (the planted fault, which must fail that test), profiles."""
+    from unittest import mock
+
+    from repro_torch.models import layers as L
+    from repro_torch.serve.engine import tree_clone, tree_leaves
+
+    cfg, dev = api.cfg, api.device
+    n_global = cfg.num_layers // cfg.group_size
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=gen,
+                           device=dev)
+    windows, flash = [], L.flash_attention
+
+    def recording(q, k, v, **kw):
+        windows.append(kw["window"])
+        return flash(q, k, v, **kw)
+
+    with torch.inference_mode():
+        with mock.patch.object(L, "flash_attention", recording):
+            _, cache, prefill_s, counts = timed_prefill(
+                api, params, tokens, S, cache_len,
+                {"flash_attention": flash_cuda},
+                {"flash_attention": cfg.num_layers})
+        timed = windows[-cfg.num_layers:]     # the timed prefill's calls
+        by_window = {w: timed.count(w) for w in set(timed)}
+        if by_window != {cfg.window: cfg.num_layers - n_global, None: n_global}:
+            raise SystemExit(f"{cfg.name} prefill flash windows {by_window}")
+        state0 = tree_clone(cache)
+        sync(dev)
+        t0 = time.perf_counter()
+        cont = ring_readings(api, params, cache, tokens, S, steps, cache_len)
+        sync(dev)
+        cont_s = time.perf_counter() - t0
+        if flash_cuda.launches != cfg.num_layers + (steps + 1) * cfg.num_layers:
+            raise SystemExit(f"{cfg.name}: flash launches {flash_cuda.launches}, "
+                             "want none in the decode steps")
+        flash0 = flash_cuda.launches
+        g, state_g, graph_ms, first_s, _ = graph_decode(
+            f"{cfg.name} decode graph", api.decode_step, params, state0, tokens,
+            S, list(cont["decoded"]))
+        if flash_cuda.launches != flash0:
+            raise SystemExit(f"{cfg.name} decode graph launched flash")
+        for dst, src in zip(tree_leaves(state_g), tree_leaves(state0)):
+            dst.copy_(src)
+        ring_fault(state_g)
+        fault = ring_readings(api, params, state_g, tokens, S, steps, cache_len,
+                              step=g)
+        sync(dev)
+        t0 = time.perf_counter()
+        decode_logits(api.decode_step, params, tree_clone(state0), tokens, S, steps)
+        sync(dev)
+        decode_s = (time.perf_counter() - t0) / steps
+    log(f"{cfg.name} L{cfg.num_layers} ({cfg.num_layers - n_global} window "
+        f"{cfg.window}, {n_global} global) d{cfg.d_model} hd{cfg.hd}: prefill "
+        f"{B}x{S} into {cache_len} {prefill_s * 1e3:.3f} ms, decode eager "
+        f"{decode_s * 1e3:.3f} ms/step, graph {graph_ms:.3f} ms/step (first "
+        f"call {first_s * 1e3:.1f} ms; replayed logits equal to the eager ones "
+        f"bit for bit, twice over), prefill launches {counts}, flash windows "
+        f"{by_window}; continuation run {cont_s:.1f} s")
+    tol, tol_cache = TOL_CONT_LOGITS[cfg.name], TOL_CONT_CACHE[cfg.name]
+    for what, r in (("", cont), (", first local ring rolled one slot "
+                                 "(planted fault)", fault)):
+        err, same, n_tok, gap = r["logits"]
+        log(f"{cfg.name} prefill({S}) + n decode steps vs prefill({S}+n), n = "
+            f"1..{steps}{what}: max|err| {err:.4f} (limit {tol}; mean |logit| "
+            f"{r['logit_abs']:.4f}, largest {r['logit_max']:.4f}); greedy "
+            f"tokens equal {same}/{n_tok}, largest prefill-logit gap where "
+            f"they differ {gap:.4f}; cache vs prefill({S}+{steps})'s: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in r["cache"].items())
+            + f" (limit {tol_cache})")
+    err, _, _, gap = cont["logits"]
+    if not (torch.isfinite(cont["decoded"]).all() and err <= tol and gap <= tol
+            and max(cont["cache"].values()) <= tol_cache):
+        raise SystemExit(f"{cfg.name} decode does not continue its prefill")
+    if fault["logits"][0] <= tol and max(fault["cache"].values()) <= tol_cache:
+        raise SystemExit(f"{cfg.name}: the planted ring fault passes the "
+                         "continuation test")
+    if dev.type == "cuda":
+        bound, what = gemma3_step_bound(params, cfg, B, cache_len, S + steps - 1)
+        with torch.inference_mode():
+            profile_steps(f"{cfg.name} prefill", lambda t: api.prefill(
+                params, {"tokens": tokens[:, :S]}, cache_len=cache_len), 0, 2)
+            profile_steps(f"{cfg.name} decode", lambda t: api.decode_step(
+                params, cache, t, tokens[:, t:t + 1]), S + steps - 2, 2,
+                bound, what)
+            profile_steps(f"{cfg.name} decode graph", lambda t: g(
+                params, state_g, t, tokens[:, t:t + 1]), S + steps - 2, 2,
+                bound, what)
+
+
 def weights_ms(params) -> float:
     """A lower bound on a decode step's time in ms: its weights read once
     over the card's memory rate (the cache it also reads is left out)."""
@@ -1309,9 +1526,17 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "wgmma", "arning")):
                 log(f"  {k}: {line.strip()}")
     hgmma = sass_count(_build.lib_path("flash_attention_wgmma"), "HGMMA")
-    log(f"SASS of flash_attention_wgmma: {hgmma} HGMMA instructions")
-    if hgmma == 0:
-        raise SystemExit("the bf16 flash library has no tensor-core (HGMMA) instruction")
+    hgmma_320 = sass_count(_build.lib_path("flash_attention_wgmma"), "HGMMA",
+                           "Li320E")
+    log(f"SASS of flash_attention_wgmma: {hgmma} HGMMA instructions, "
+        f"{hgmma_320} of them in the D 320 instance")
+    if hgmma == 0 or hgmma_320 == 0:
+        raise SystemExit("the bf16 flash library (or its D 320 instance) has "
+                         "no tensor-core (HGMMA) instruction")
+    for lib in ("flash_attention_wgmma", "flash_attention"):
+        lines = (ptxas_lines(report[lib]["ptxas"], "Li320E") if lib in report
+                 else ["built before this run: no ptxas output"])
+        log(f"ptxas -v, D 320 instance of {lib}: " + "; ".join(lines))
     hmma = sass_count(_build.lib_path("gla_scan_mma"), "HMMA")
     log(f"SASS of gla_scan_mma: {hmma} HMMA instructions")
     if hmma == 0:
@@ -1326,7 +1551,7 @@ def main() -> int:
     del timer
     for arch in ("tinyllama_1p1b",) + MOE_ARCHS:
         check_reduced_against_cpu(arch, args.seed)
-    for arch in ("rwkv6_7b", "zamba2_1p2b", "seamless_m4t_medium"):
+    for arch in ("rwkv6_7b", "zamba2_1p2b", "seamless_m4t_medium", "gemma3_4b"):
         check_reduced_api_against_cpu(arch, args.seed)
 
     # 4. main path at full width
@@ -1412,6 +1637,23 @@ def main() -> int:
     del api, params
     torch.cuda.empty_cache()
     log(f"seamless_m4t_medium phase {time.perf_counter() - t_phase:.1f} s")
+
+    # 12. local:global attention at full width and depth
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    api = build_model(get_config("gemma3_4b"))
+    params, _ = api.init(gen)
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    gemma3_path(api, params, gen, flash_attention_cuda, **GEMMA)
+    log(f"gemma3_4b: weights {weights_ms(params) * H100_BYTES_PER_S / 1e12:.3f} "
+        f"GB; peak device memory {init_peak:.3f} GiB during init, "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB during prefill "
+        "and decode")
+    serve_batch(api, params, f"{name} ({card})")
+    del api, params
+    torch.cuda.empty_cache()
+    log(f"gemma3_4b phase {time.perf_counter() - t_phase:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     entries = []

@@ -20,6 +20,12 @@
 // share one query row, each holding every fourth element of the row's q and
 // accumulator in registers.
 //
+// D 320 (gemma3_4b) would need 80 KiB of static shared memory for 32-key
+// tiles (the limit is 48 KiB) and 160 registers a thread for q and the
+// accumulator, so its instance takes 16-key tiles (40 KiB) and eight threads
+// a row (40 + 40 registers; 512 threads for 64 rows).  Both are template
+// parameters, so the instances for D 32, 64 and 128 are as they were.
+//
 // Layouts (all contiguous): q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D),
 // out (B, Sq, Hq, D), Hq = Hkv * G.
 
@@ -30,16 +36,22 @@ namespace {
 using repro::kNegInf;
 using repro::to_float;
 
-constexpr int kPart = 4;    // threads per query row
-constexpr int kTileK = 32;  // keys per shared-memory tile
 constexpr int kRows = 64;   // query rows (heads x positions) per block
 
+// Threads per query row and keys per shared-memory tile, by head dim.
+template <int D>
+struct Split {
+  static constexpr int kPart = D > 128 ? 8 : 4;
+  static constexpr int kTileK = D > 128 ? 16 : 32;
+};
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kRows * kPart)
+__global__ void __launch_bounds__(kRows * Split<D>::kPart)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int Sq,
                        int Sk, int Hkv, int G, int bq, int causal, int window,
                        int q_offset, float scale) {
+  constexpr int kPart = Split<D>::kPart, kTileK = Split<D>::kTileK;
   constexpr int DP = D / kPart;
   __shared__ float k_s[kTileK][D];
   __shared__ float v_s[kTileK][D];
@@ -90,8 +102,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float dot = 0.f;
 #pragma unroll
       for (int i = 0; i < DP; ++i) dot += qr[i] * k_s[t][i * kPart + part];
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+#pragma unroll
+      for (int o = 1; o < kPart; o <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
       const int kpos = k0 + t;
       bool ok = kpos < Sk;
       if (causal) ok = ok && kpos <= qpos;
@@ -132,7 +144,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int window, int q_offset, float scale, cudaStream_t stream) {
   const int G = Hq / Hkv;
   const int bq = G >= kRows ? 1 : kRows / G;  // query positions per block
-  const int threads = (G * bq * kPart + 31) / 32 * 32;
+  const int threads = (G * bq * Split<D>::kPart + 31) / 32 * 32;
   const dim3 grid(B * Hkv, (Sq + bq - 1) / bq);
   flash_attention_kernel<T, D><<<grid, threads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -144,7 +156,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // fp32 q, k, v, out; window <= 0 means no window.  Returns a cudaError_t.
-// Head dims 32, 64 and 128 are compiled.
+// Head dims 32, 64, 128 and 320 are compiled.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,
                                       int Sk, int Hq, int Hkv, int D,
@@ -161,6 +173,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       break;
     case 128:
       err = launch<float, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, s);
+      break;
+    case 320:
+      err = launch<float, 320>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, s);
       break;
     default:
       err = cudaErrorInvalidValue;

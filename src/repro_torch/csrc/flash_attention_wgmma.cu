@@ -8,8 +8,8 @@
 // fp32 running max, sum and accumulator with the finite mask value -1e30 in
 // both the fill and the running-max start, key tiles wholly above the
 // diagonal or left of the window skipped, ragged Sq and Sk (keys past Sk are
-// masked, queries past Sq are not written), any G = Hq / Hkv, D 32, 64 or
-// 128.
+// masked, queries past Sq are not written), any G = Hq / Hkv, D 32, 64,
+// 128 or 320.
 //
 // Bound: at TinyLlama's prefill shape (B 8, S 512, Hq 32, Hkv 4, D 64,
 // causal) the call moves 37.7 MB (q, k, v read once, out written once:
@@ -31,7 +31,15 @@
 // The swizzle of each TMA box (128 bytes for a 64-column row, 64 bytes at
 // D 32; D 128 loads two 64-column boxes) is the swizzle the wgmma
 // descriptors name.  The output goes through a padded shared-memory tile so
-// that each row is stored as 16-byte pieces.
+// that each row is stored as 16-byte pieces; that tile lies over the K
+// stages, which no wgmma reads once the last tile is consumed.
+//
+// D 320 (gemma3_4b: d_model 2560 over 8 heads) loads five 64-column boxes a
+// row, and no single wgmma shape spans 320 columns, so O += P V is five
+// m64n64k16 products a key step, one per column block of V, each into its
+// own 32 of the 160 accumulator registers a thread holds.  Shared memory
+// is 200 KiB (Q 40, two stages of K and V 160), so one block fits an SM and
+// the launch bounds let a thread keep O, S and P (208 floats) in registers.
 //
 // Layout choice: one block per (batch, query head, 64-row query tile), not
 // the G heads of a kv head stacked into a tile's rows as the CUDA-core
@@ -73,12 +81,12 @@ struct Tile {
 };
 
 // Every tile is a multiple of 1024 bytes, so each starts on a swizzle atom.
+// The epilogue stages the output tile (kBM rows of kOStride) in k.
 template <int D>
 struct __align__(1024) Smem {
   bf16 q[kBM * D];
   bf16 k[kStages][kBN * D];
   bf16 v[kStages][kBN * D];
-  bf16 o[kBM * Tile<D>::kOStride];
   uint64_t full[kStages];
   uint64_t empty[kStages];
   uint64_t q_full;
@@ -86,7 +94,7 @@ struct __align__(1024) Smem {
 
 // Descriptor of columns [16 kk, 16 kk + 16) of a K-major tile of `rows` rows
 // (Q or K): the start moves within the swizzled row, or to the next column
-// block at D 128; the stride byte offset steps over 8-row atoms.
+// block at D 128 and 320; the stride byte offset steps over 8-row atoms.
 template <int D>
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t base, int rows, int kk) {
   using T = Tile<D>;
@@ -109,6 +117,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
+// O += P V over keys [16 kk, 16 kk + 16): one wgmma of N = D up to D 128;
+// at D 320 one m64n64 per 64-column block of V, block c into o[32 c, 32 c + 32)
+// (so o[e] is column 8 (e >> 2) + 2 (lane % 4) + (e & 1) at every D).
+template <int D>
+__device__ __forceinline__ void pv_wgmma(float (&o)[D / 2], const uint32_t (&a)[4],
+                                         uint32_t v_base, int kk) {
+  if constexpr (D <= 128) {
+    wgmma_rs<D>(o, a, mnmajor_desc<D>(v_base, kk));
+  } else {
+    using T = Tile<D>;
+#pragma unroll
+    for (int c = 0; c < T::kBlocks; ++c)
+      wgmma_rs_m64n64k16(*reinterpret_cast<float(*)[32]>(o + 32 * c), a,
+                         mnmajor_desc<D>(v_base + c * kBN * T::kRowBytes, kk));
+  }
+}
+
 // Key tiles any row of the query tile at q0 can see: [lo, lo + n * kBN).
 struct KeyRange {
   int lo, n;
@@ -124,7 +149,7 @@ __device__ __forceinline__ KeyRange key_range(int q0, int Sq, int Sk, int causal
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, D == 128 ? 2 : 3)
+__global__ void __launch_bounds__(kThreads, D == 320 ? 1 : D == 128 ? 2 : 3)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
                              const __grid_constant__ CUtensorMap v_map,
@@ -256,7 +281,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
       const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
-      wgmma_rs<D>(o, a, mnmajor_desc<D>(v_base, kk));
+      pv_wgmma<D>(o, a, v_base, kk);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -266,6 +291,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 
   // Epilogue: O / (l + 1e-30) in bf16 through shared memory, rows < Sq.
+  // The staging tile lies over the K stages: every wgmma that read them has
+  // completed (the last P V's wait implies the warpgroup's earlier ones), and
+  // the producer issued no load past the last tile.
+  static_assert(sizeof(Smem<D>::k) >= sizeof(bf16) * kBM * T::kOStride,
+                "the output tile must fit over the K stages");
+  bf16* const o_s = sm.k[0];
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -277,7 +308,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int e = 0; e < D / 2; e += 2) {
     const int r = (e >> 1) & 1;
     const int row = row0 + 8 * r, col = 8 * (e >> 2) + col0;
-    *reinterpret_cast<uint32_t*>(&sm.o[row * T::kOStride + col]) =
+    *reinterpret_cast<uint32_t*>(&o_s[row * T::kOStride + col]) =
         pack_bf16(o[e] * inv[r], o[e + 1] * inv[r]);
   }
   asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
@@ -287,7 +318,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     if (q0 + row < Sq) {
       const size_t off = ((static_cast<size_t>(b) * Sq + q0 + row) * Hq + h) * D + 8 * c;
       *reinterpret_cast<int4*>(out + off) =
-          *reinterpret_cast<const int4*>(&sm.o[row * T::kOStride + 8 * c]);
+          *reinterpret_cast<const int4*>(&o_s[row * T::kOStride + 8 * c]);
     }
   }
 }
@@ -369,11 +400,12 @@ extern "C" int flash_attention_wgmma_setup() {
   cudaError_t err = allow_smem<32>();
   if (err == cudaSuccess) err = allow_smem<64>();
   if (err == cudaSuccess) err = allow_smem<128>();
+  if (err == cudaSuccess) err = allow_smem<320>();
   return static_cast<int>(err);
 }
 
 // bf16 q, k, v, out; window <= 0 means no window.  Returns a cudaError_t.
-// Head dims 32, 64 and 128 are compiled; flash_attention_wgmma_setup must
+// Head dims 32, 64, 128 and 320 are compiled; flash_attention_wgmma_setup must
 // have run on the current device.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
                                             void* out, int B, int Sq, int Sk, int Hq,
@@ -391,6 +423,9 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
       break;
     case 128:
       err = launch<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, s);
+      break;
+    case 320:
+      err = launch<320>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, s);
       break;
     default:
       err = cudaErrorInvalidValue;

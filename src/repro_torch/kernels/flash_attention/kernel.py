@@ -30,7 +30,7 @@ from repro_torch.kernels import _build
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_void_p])
-HEAD_DIMS = (32, 64, 128)   # the head dims both sources compile
+HEAD_DIMS = (32, 64, 128, 320)   # the head dims both sources compile
 # route -> (library, C entry point)
 _LIBS = {"wgmma": ("flash_attention_wgmma", "flash_attention_wgmma_launch"),
          "simt": ("flash_attention", "flash_attention_launch")}

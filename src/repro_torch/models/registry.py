@@ -4,11 +4,12 @@ Port of ``repro.models.registry``.  ``build_model(cfg, device)`` returns a
 :class:`ModelAPI` with the JAX package's members; ``input_specs`` returns
 meta-device tensors in place of ``ShapeDtypeStruct``.  Ported: the dense
 and MoE transformer (whose ``loss_fn`` adds 0.01 x the summed load-balance
-loss, as the JAX package's), ssm (RWKV6), hybrid (Zamba2) and encdec
-(SeamlessM4T: batches carry ``frames``, and ``init_cache`` takes an
-``enc_len`` that defaults to ``cache_len``).  The vlm family and the
-transformer's ``local_global`` pattern raise ``NotImplementedError``
-naming their ROADMAP.md item (``transformer.check_supported``).
+loss, as the JAX package's), with full attention or gemma3's local:global
+pattern (its nested ``groups``/``tail`` params and ring caches), ssm
+(RWKV6), hybrid (Zamba2) and encdec (SeamlessM4T: batches carry
+``frames``, and ``init_cache`` takes an ``enc_len`` that defaults to
+``cache_len``).  The vlm family raises ``NotImplementedError`` naming its
+ROADMAP.md item (``transformer.check_supported``).
 """
 
 from __future__ import annotations

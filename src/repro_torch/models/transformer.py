@@ -1,4 +1,5 @@
-"""Decoder-only LM, the dense and MoE families with full attention.
+"""Decoder-only LM, the dense and MoE families, with full attention or
+gemma3's local:global pattern.
 
 Port of ``repro.models.transformer``.  Layer params are stacked on a
 leading "layers" axis as in JAX; each ``lax.scan`` over them becomes a
@@ -8,9 +9,15 @@ are given and return it, where the JAX functions return a new one.  A MoE
 block (granite, dbrx) runs ``models.moe`` where a dense block runs its MLP,
 and its load-balance loss is summed over the layers.
 
-The ``local_global`` attention pattern (gemma3) and the ``vlm`` family
-raise ``NotImplementedError``: they are item 4 (second half) of Queue 1 in
-ROADMAP.md.
+The ``local_global`` pattern (gemma3) keeps the reference's grouped tree:
+``groups`` holds ``local`` (``group_size - 1`` sliding-window layers,
+stacked ``(n_groups, group_size - 1, ...)``) and ``global`` (one full
+attention layer, stacked ``(n_groups, ...)``), and ``tail`` the
+``num_layers % group_size`` window layers left over.  Local and tail layers
+keep rings of ``W = min(window, cache_len)`` slots (position p at slot
+p % W), global layers the full length; it has no paged decode, as in the
+reference.  The ``vlm`` family raises ``NotImplementedError``: it is item 4
+(second half) of Queue 1 in ROADMAP.md.
 
 Entry points:
   init_lm(cfg, generator, device)             -> (params, logical-axes tree)
@@ -36,11 +43,7 @@ from repro_torch.models.moe import init_moe, moe_fwd
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the families and attention patterns not ported yet."""
-    if cfg.attention == "local_global":
-        raise NotImplementedError(
-            f"{cfg.name}: local_global attention is not ported yet "
-            "(ROADMAP.md, Queue 1 item 4)")
+    """Raise for the families not ported yet."""
     if cfg.family == "vlm":
         raise NotImplementedError(
             f"{cfg.name}: the vlm family (M-RoPE, embeds prefix) is not "
@@ -154,13 +157,58 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
     ep, ea = L.init_embedding(generator, cfg.padded_vocab, cfg.d_model,
                               cfg.tie_embeddings)
     params["embedding"], axes["embedding"] = ep, ea
-    bp, ba = L.stack_layer_params(lambda g: init_block(cfg, g), generator,
-                                  cfg.num_layers)
-    params["blocks"], axes["blocks"] = bp, ba
+
+    def init_one(g):
+        return init_block(cfg, g)
+
+    if cfg.attention == "local_global":
+        gsz, n_groups, tail = _local_global_counts(cfg)
+
+        def init_group(g):
+            lp, la = L.stack_layer_params(init_one, g, gsz - 1)
+            gp, ga = init_block(cfg, g)
+            return {"local": lp, "global": gp}, {"local": la, "global": ga}
+
+        gp, ga = L.stack_layer_params(init_group, generator, n_groups)
+        params["groups"], axes["groups"] = gp, ga
+        if tail:
+            tp, ta = L.stack_layer_params(init_one, generator, tail)
+            params["tail"], axes["tail"] = tp, ta
+    else:
+        bp, ba = L.stack_layer_params(init_one, generator, cfg.num_layers)
+        params["blocks"], axes["blocks"] = bp, ba
     params["final_norm"] = torch.zeros((cfg.d_model,), dtype=torch.bfloat16,
                                        device=dev)
     axes["final_norm"] = ("embed",)
     return params, axes
+
+
+def _local_global_counts(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(group size, groups, tail layers) of the local_global pattern."""
+    n_groups = cfg.num_layers // cfg.group_size
+    return cfg.group_size, n_groups, cfg.num_layers - n_groups * cfg.group_size
+
+
+def _layers(params, cfg: ModelConfig):
+    """Every layer in order as (params view, cache name, cache index,
+    window, rope theta): what each step of the reference's scans sees.
+    Full attention: ``blocks`` into ``k``/``v`` at index i.  local_global:
+    each group's local layers (window, ``rope_theta``) into
+    ``local_k``/``local_v`` at (g, l), then its global layer
+    (``rope_theta_global``) into ``global_k``/``global_v`` at g, then the
+    tail (window, the default theta) into ``tail_k``/``tail_v``."""
+    if cfg.attention != "local_global":
+        for i, blk in enumerate(L.layer_views(params["blocks"], cfg.num_layers)):
+            yield blk, "", i, None, None
+        return
+    gsz, n_groups, tail = _local_global_counts(cfg)
+    for g, grp in enumerate(L.layer_views(params["groups"], n_groups)):
+        for l, blk in enumerate(L.layer_views(grp["local"], gsz - 1)):
+            yield blk, "local_", (g, l), cfg.window, cfg.rope_theta
+        yield grp["global"], "global_", g, None, cfg.rope_theta_global
+    if tail:
+        for t, blk in enumerate(L.layer_views(params["tail"], tail)):
+            yield blk, "tail_", t, cfg.window, None
 
 
 def _final(params, cfg, x):
@@ -191,8 +239,8 @@ def lm_forward(params, cfg: ModelConfig, tokens, embeds=None):
     x = L.embed_fwd(params["embedding"], tokens)
     pos = _positions(cfg, B, S, tokens.device)
     aux = torch.zeros((), device=x.device)
-    for blk in L.layer_views(params["blocks"], cfg.num_layers):
-        x, _, a = block_fwd(blk, x, cfg, pos)
+    for blk, _, _, window, theta in _layers(params, cfg):
+        x, _, a = block_fwd(blk, x, cfg, pos, window=window, theta=theta)
         aux = aux + a
     return _final(params, cfg, x), aux
 
@@ -204,11 +252,24 @@ def lm_forward(params, cfg: ModelConfig, tokens, embeds=None):
 
 def lm_init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                   dtype=torch.bfloat16, device: str | torch.device = "cuda"):
+    """Zero K/V caches: ``k``/``v`` (L, B, cache_len, KV, hd) for full
+    attention; for local_global ``local_*`` (n_groups, gsz - 1, B, W, KV,
+    hd) and ``tail_*`` (tail, B, W, KV, hd) rings of W = min(window,
+    cache_len) slots, and ``global_*`` (n_groups, B, cache_len, KV, hd)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    KV, hd = cfg.num_kv_heads, cfg.hd
+    if cfg.attention == "local_global":
+        gsz, n_groups, tail = _local_global_counts(cfg)
+        W = min(cfg.window, cache_len)
+        shapes = {"local_": (n_groups, gsz - 1, batch, W, KV, hd),
+                  "global_": (n_groups, batch, cache_len, KV, hd)}
+        if tail:
+            shapes["tail_"] = (tail, batch, W, KV, hd)
+    else:
+        shapes = {"": (cfg.num_layers, batch, cache_len, KV, hd)}
+    return {f"{kind}{name}": torch.zeros(shape, dtype=dtype, device=dev)
+            for kind, shape in shapes.items() for name in ("k", "v")}
 
 
 def lm_decode_step(params, cfg: ModelConfig, cache: dict, kv_len, token):
@@ -221,9 +282,10 @@ def lm_decode_step(params, cfg: ModelConfig, cache: dict, kv_len, token):
     B = token.shape[0]
     x = L.embed_fwd(params["embedding"], token)
     pos = _positions(cfg, B, 1, token.device, offset=kv_len)
-    for i, blk in enumerate(L.layer_views(params["blocks"], cfg.num_layers)):
-        x, _, _ = block_decode(blk, x, cfg, cache["k"][i], cache["v"][i],
-                               kv_len, pos)
+    for blk, kind, i, window, theta in _layers(params, cfg):
+        x, _, _ = block_decode(blk, x, cfg, cache[f"{kind}k"][i],
+                               cache[f"{kind}v"][i], kv_len, pos,
+                               window=window, theta=theta)
     return _final(params, cfg, x)[:, 0], cache
 
 
@@ -232,7 +294,10 @@ def lm_prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None,
     """Run the full prompt, returning (last-token logits, filled cache).
 
     Each layer's K/V (returned by its block) is written straight into a
-    cache of ``cache_len`` positions, zero past the prompt.
+    cache of ``cache_len`` positions, zero past the prompt; a window
+    layer's into its ring of W slots, position p at slot p % W (the
+    reference's ``ring``: zero past the prompt when S <= W, else the last
+    W positions rolled by S % W).
     """
     check_supported(cfg)
     if embeds is not None:
@@ -242,20 +307,28 @@ def lm_prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None,
     cache_len = cache_len or S
     x = L.embed_fwd(params["embedding"], tokens)
     pos = _positions(cfg, B, S, tokens.device)
-    shape = (cfg.num_layers, B, cache_len, cfg.num_kv_heads, cfg.hd)
-    ks = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    vs = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    for i, blk in enumerate(L.layer_views(params["blocks"], cfg.num_layers)):
-        x, (k, v), _ = block_fwd(blk, x, cfg, pos)
-        ks[i, :, :S] = k
-        vs[i, :, :S] = v
+    cache = lm_init_cache(cfg, B, cache_len, dtype=x.dtype, device=x.device)
+    for blk, kind, i, window, theta in _layers(params, cfg):
+        x, kv, _ = block_fwd(blk, x, cfg, pos, window=window, theta=theta)
+        for name, a in zip("kv", kv):
+            dst = cache[f"{kind}{name}"][i]
+            W = dst.shape[1]
+            if window is None or S <= W:
+                dst[:, :S] = a
+            else:
+                dst.copy_(a[:, -W:].roll(S % W, dims=1))
     logits = _final(params, cfg, x[:, -1:])[:, 0]
-    return logits, {"k": ks, "v": vs}
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------
 # Paged decode (DDS-style block-table serving).
 # ---------------------------------------------------------------------------
+
+
+def _refuse_local_global(cfg: ModelConfig) -> None:
+    if cfg.attention == "local_global":
+        raise NotImplementedError("paged decode targets uniform-cache archs")
 
 
 def lm_init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -269,6 +342,7 @@ def lm_init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
     DDS store, remapping table entries as pages move.
     """
     check_supported(cfg)
+    _refuse_local_global(cfg)
     dev = resolve_device(device)
     KV, hd, Lr = cfg.num_kv_heads, cfg.hd, cfg.num_layers
     pages_per_seq = -(-max_len // page)
@@ -295,6 +369,7 @@ def lm_decode_step_paged(params, cfg: ModelConfig, cache: dict, kv_len,
     rows are written into the pools in place; returns (logits (B, vocab),
     cache)."""
     check_supported(cfg)
+    _refuse_local_global(cfg)
     kv_len = L.kv_len_tensor(kv_len, token.device)
     B = token.shape[0]
     page = cache["page"]

@@ -37,6 +37,16 @@ FA_ENCDEC_CASES = [
     (2, 16, 100, 4, 4, 64, False, None),
     (2, 130, 130, 4, 4, 64, False, None),
 ]
+# B, Sq, Sk, Hq, Hkv, D, causal, window: gemma3_4b's head dim (d_model 2560
+# over 8 heads: D 320, five 64-column blocks) at its G 2, with a window
+# shorter than the keys (local layers) and without (global layers), at S on
+# the 64-row tile grid, at a ragged S and at Sq < Sk (q_offset Sk - Sq).
+FA_GEMMA_CASES = [
+    (1, 192, 192, 4, 2, 320, True, 64),
+    (1, 128, 128, 4, 2, 320, True, None),
+    (2, 100, 100, 2, 1, 320, True, 48),
+    (1, 64, 192, 4, 2, 320, True, 100),
+]
 # B, Hq, Hkv, D, pool_pages, page, max_pages  (PA_CASES of tests/test_kernels.py)
 PA_CASES = [
     (2, 8, 2, 64, 16, 16, 4),

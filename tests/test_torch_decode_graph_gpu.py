@@ -7,8 +7,11 @@ import no JAX, so they run on the card's machine:
 Reduced TinyLlama (2 layers; dense, and paged at page 16 with head dim 64,
 which takes the cluster-split paged kernel, or 32, which takes the
 CUDA-core one), RWKV6-7B (2 layers), Zamba2-1.2B (3 layers: one group
-and a tail) and granite-MoE-3B (2 layers of 8 experts top-2; dense, and
-paged on the split route) in bf16 with random weights from a seed.  A replay runs the
+and a tail), granite-MoE-3B (2 layers of 8 experts top-2; dense, and
+paged on the split route) and gemma3_4b (5 layers: two groups of a
+window layer and a global one, and a window tail; rings of 16 slots that
+the prompt has wrapped, and the steps wrap again) in bf16 with random
+weights from a seed.  A replay runs the
 kernels the eager step launches, in the same order, on the same inputs, so
 logits and state must be bitwise equal.
 """
@@ -26,14 +29,15 @@ from repro_torch.serve import engine
 from repro_torch.serve.engine import BatchScheduler, DecodeGraph, Request
 
 STEPS = ["dense", "paged_split", "paged_simt", "rwkv6", "zamba2", "moe",
-         "moe_paged_split"]
+         "moe_paged_split", "local_global"]
 ARCH = {"dense": "tinyllama_1p1b", "paged_split": "tinyllama_1p1b",
         "paged_simt": "tinyllama_1p1b", "rwkv6": "rwkv6_7b",
         "zamba2": "zamba2_1p2b", "moe": "granite_moe_3b_a800m",
-        "moe_paged_split": "granite_moe_3b_a800m"}
+        "moe_paged_split": "granite_moe_3b_a800m", "local_global": "gemma3_4b"}
 LAYERS = {"tinyllama_1p1b": dict(num_layers=2), "rwkv6_7b": dict(num_layers=2),
           "zamba2_1p2b": dict(num_layers=3, attn_every=2),
-          "granite_moe_3b_a800m": dict(num_layers=2)}
+          "granite_moe_3b_a800m": dict(num_layers=2),
+          "gemma3_4b": dict(num_layers=5, group_size=2, window=16)}
 PAGED_ROUTE = {"paged_split": "split", "paged_simt": "simt",
                "moe_paged_split": "split"}
 B, PROMPT, N_STEPS, CACHE_LEN, PAGE = 4, 40, 8, 64, 16
@@ -157,10 +161,11 @@ def test_paged_graph_follows_a_remapped_block_table(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["tinyllama_1p1b", "rwkv6_7b", "zamba2_1p2b",
-                                  "granite_moe_3b_a800m"])
+                                  "granite_moe_3b_a800m", "gemma3_4b"])
 def test_graph_and_eager_schedulers_give_the_same_tokens(arch, cuda_device):
     kind = {"tinyllama_1p1b": "dense", "rwkv6_7b": "rwkv6",
-            "zamba2_1p2b": "zamba2", "granite_moe_3b_a800m": "moe"}[arch]
+            "zamba2_1p2b": "zamba2", "granite_moe_3b_a800m": "moe",
+            "gemma3_4b": "local_global"}[arch]
     api, params = _api(kind, cuda_device)
     prompts = torch.randint(0, api.cfg.vocab_size, (10, 4),
                             generator=torch.Generator().manual_seed(3)).numpy()

@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (FA_CASES, FA_ENCDEC_CASES, FA_MOE_CASES, PA_CASES, TOL, fa_inputs,
-                          pa_inputs)
+from _torch_cases import (FA_CASES, FA_ENCDEC_CASES, FA_GEMMA_CASES, FA_MOE_CASES, PA_CASES,
+                          TOL, fa_inputs, pa_inputs)
+from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ops import flash_attention_xla as jax_fa_xla
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro.kernels.paged_attention.ref import \
@@ -65,6 +66,30 @@ def test_flash_attention_xla_matches_jax_at_encdec_shapes(case, dtype):
     """Cross-attention as the encoder-decoder calls it: not causal,
     q_offset 0, Sq != Sk (Sq 1 at decode)."""
     _flash_xla_matches_jax(case, dtype, q_offset=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_GEMMA_CASES)
+def test_flash_attention_xla_matches_jax_at_head_dim_320(case, dtype):
+    """gemma3_4b's head dim, with and without its sliding window."""
+    _flash_xla_matches_jax(case, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [c for c in FA_GEMMA_CASES
+                                  if c[1] % 64 == 0 and c[2] % 64 == 0])
+def test_flash_attention_xla_matches_pallas_interpret_at_head_dim_320(case, dtype):
+    """The port's plain version against the Pallas kernel itself, run in
+    interpret mode as tests/test_kernels.py runs it (which needs Sq and Sk
+    on its 64-row blocks), at D 320 with and without a window."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window = case
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in fa_inputs(case))
+    ref = flash_attention_pallas(jq, jk, jv, causal=causal, window=window,
+                                 block_q=64, block_k=64, interpret=True)
+    out = flash_attention_xla(tq, tk, tv, causal=causal, window=window,
+                              block_q=64, block_k=64)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=TOL[dtype],
+                               rtol=TOL[dtype])
 
 
 def _flash_xla_matches_jax(case, dtype, q_offset=None):

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (FA_CASES, FA_MOE_CASES, GLA_CASES, GLA_MMA_CASES,
+from _torch_cases import (FA_CASES, FA_GEMMA_CASES, FA_MOE_CASES, GLA_CASES, GLA_MMA_CASES,
                           PA_CASES, PA_SPLIT_CASES, TOL, fa_inputs, gla_inputs,
                           gla_mma_inputs, pa_inputs, pa_split_inputs)
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
@@ -79,6 +79,16 @@ def test_flash_attention_cuda_matches_plain(case, dtype, cuda_device):
 @pytest.mark.parametrize("case", FA_MOE_CASES)
 def test_flash_attention_cuda_at_moe_heads(case, dtype, cuda_device):
     """granite-MoE's G = 3 at D 64 and DBRX's G = 6 at D 128."""
+    _flash_close(case, dtype, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_GEMMA_CASES)
+def test_flash_attention_cuda_at_head_dim_320(case, dtype, cuda_device):
+    """gemma3_4b's D 320 (five 64-column TMA boxes and five P V products a
+    key step on wgmma; 16-key tiles and eight threads a row on the CUDA
+    cores), windowed and not, ragged, and at Sq < Sk."""
     _flash_close(case, dtype, cuda_device)
 
 
