@@ -13,7 +13,8 @@ Phases, each of which exits non-zero on failure:
      (HMMA), and print ptxas's registers and spills of both flash
      libraries' D 320 instances;
   3. each kernel against its plain PyTorch version at the main paths'
-     shapes (flash and paged also at granite-MoE's and DBRX's heads):
+     shapes (flash and paged also at granite-MoE's, DBRX's and
+     qwen2_vl_72b's heads, the last from generators of their own):
      max |err| beside the tolerance, and kernel, plain, library
      (where one call computes the same function) and bound times; flash
      and gla_scan on both routes (bf16 on the tensor cores, fp32 and the
@@ -26,8 +27,8 @@ Phases, each of which exits non-zero on failure:
      gemma3_4b's (D 320, with its window of 1024 and without, bf16 and
      fp32; SDPA timed with the window as a mask and its backend named),
      each drawn from a generator of its own; then
-     reduced TinyLlama, granite-MoE, DBRX, RWKV6, Zamba2, SeamlessM4T and
-     gemma3_4b (with a tail)
+     reduced TinyLlama, granite-MoE, DBRX, qwen2_vl_72b (with an embeds
+     prefix), RWKV6, Zamba2, SeamlessM4T and gemma3_4b (with a tail)
      models on the card (the kernels) held against the CPU path (their
      plain versions) in fp32, for the MoE family with its load-balance loss
      (and, once, a MoE layer that drops tokens);
@@ -74,7 +75,18 @@ Phases, each of which exits non-zero on failure:
      the cache they leave against that prefill's (every ring slot), the
      same steps from a ring rolled one slot (a planted fault that must fail
      that test), profiles, BatchScheduler captured and eager, and the peak
-     device memory.
+     device memory;
+ 13. qwen2_vl_72b at full width with 24 of its 80 layers (M-RoPE, an
+     embeds prefix of 512 patch rows): its peak device memory during init
+     (held to the weights plus one layer), then phase 4's path with the
+     prefix (prefill of 8 x 2048 into 2304 positions: 24 flash launches on
+     the tensor-core route; dense and paged decode, 24 paged launches a step
+     on the split route, eager and captured; profiles against the step's
+     weights and K/V read once), the dense steps held against the last
+     logits of a prefill of the longer prompt over the same prefix, the
+     same steps after a prefill whose prefixes are rolled one sequence (a
+     planted fault that must fail that limit), BatchScheduler captured and
+     eager, and PagedKVEngine over its 256 KiB K pages.
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
 """
@@ -116,6 +128,15 @@ TOL_PAGED_LONG = 2e-3
 # fp32: the reduced models on the card vs the CPU path, and flash's fp32
 # route vs its plain version
 TOL_FP32 = 1e-4
+# qwen2_vl_72b (24 of 80 layers, phase 13, 8 steps after a 2048-token
+# prompt whose first 512 positions are the embeds prefix): paged against
+# dense decode logits, and prefill(S) + n dense steps against prefill(S + n)
+# over the same prefix.  An H100 measured at most 0.0879 and 0.1016 over
+# seeds 0-3 (scripts/vlm_cont_gate.py; mean |logit| 0.80), and at least
+# 7.0469 with every sequence given its neighbour's prefix (the planted
+# fault of phase 13); these allow 3.5 times the first two.
+VLM_TOL_PAGED = 0.31
+VLM_TOL_CONT = 0.36
 # Paged against dense decode of the full model in bf16: the two attention
 # paths round differently and the difference grows through the layers.
 # TinyLlama (22 layers): an H100 measured 0.072 at seed 0, and this allows
@@ -130,7 +151,7 @@ TOL_FP32 = 1e-4
 # times that.  For the MoE family this limit cannot tell a wrong paged
 # kernel from a flip: TOL_PAGED_PINNED is the gate that can.
 TOL_PAGED_LOGITS = {"tinyllama_1p1b": 0.25, "granite_moe_3b_a800m": 17.6,
-                    "dbrx_132b": 10.6}
+                    "dbrx_132b": 10.6, "qwen2_vl_72b": VLM_TOL_PAGED}
 # The same comparison with each layer's experts pinned to the dense path's,
 # so that no flip moves a token: the attention paths' rounding, carried
 # through layers whose MoE outputs are large.  An H100 measured 0.4570
@@ -145,6 +166,11 @@ TOL_PAGED_PINNED = {"granite_moe_3b_a800m": 1.6, "dbrx_132b": 0.38}
 # width with 4 of its 40 layers (its 132 B bf16 weights are about 264 GB).
 MOE_ARCHS = ("granite_moe_3b_a800m", "dbrx_132b")
 DBRX_LAYERS = 4
+# The DDS page store's page payload for KV paging: 64 KiB, one TinyLlama K
+# page.  The storage server splits a write larger than half its 256 KiB
+# request ring, and caches for the DPU only pages one write covers whole, so
+# a larger K page (qwen2_vl_72b's is 256 KiB) spans several store pages.
+KV_STORE_PAYLOAD = 1 << 16
 # GLA scan kernel against its plain version, as the JAX package's GLA
 # tests compare (tests/test_kernels.py): atol = rtol = 4 x {fp32 2e-5,
 # bf16 2e-2} on the output (which reaches O(100) at S 512, where one bf16
@@ -177,13 +203,27 @@ GLA_SIMT_BEFORE_MS = 1.2745
 # mean |logit| 0.81), and at least 0.5342 with the first local ring rolled
 # one slot (the planted fault of phase 12); this allows 3.5 times the first.
 TOL_CONT_LOGITS = {"rwkv6_7b": 0.9, "zamba2_1p2b": 0.17,
-                   "seamless_m4t_medium": 0.17, "gemma3_4b": 0.44}
+                   "seamless_m4t_medium": 0.17, "gemma3_4b": 0.44,
+                   "qwen2_vl_72b": VLM_TOL_CONT}
 # gemma3_4b: the cache that prefill(S) + n decode steps leave against the
 # cache of prefill(S + n), every ring slot and global position: rounding
 # alone moves a key by a few bf16 steps, a slot that holds another position
 # by a whole key.  An H100 measured at most 0.1094 over seeds 0-3 and at
 # least 7.9062 with the planted fault; this allows 3.5 times the first.
 TOL_CONT_CACHE = {"gemma3_4b": 0.38}
+# qwen2_vl_72b, phase 13: full width (d 8192, 64/8 heads of 128, d_ff
+# 29568, vocab 152064) with 24 of its 80 layers (the bf16 weights of all 80
+# are about 145 GB; 24 are 47.1 GB), a prompt of 2048 whose first
+# min(VLM_PATCH_TOKENS, 2048 // 4) = 512 positions are the embeds prefix,
+# into a cache of 2304 (18 pages of 128).
+VLM_LAYERS = 24
+# What phase 13's init may hold beyond its weights and one layer (the
+# layer being drawn before it is copied into its slot): the temporaries of
+# drawing one matrix (its largest, 8192 x 29568 bf16, is 0.45 GiB; an H100
+# measured 1.014 GiB over weights and layer) and allocator slack.  A list
+# of layers stacked at the end would hold the weights twice.
+INIT_SLACK = 2 * 2**30
+VLM = dict(B=8, S=2048, cache_len=2304, steps=8, page=128)
 # seamless_m4t_medium, phase 11: frames, decoder prompt and decode steps.
 SEAMLESS = dict(B=8, S_enc=512, S=64, steps=8)
 # B, Sq, Sk, Hq, Hkv, D, causal, use: the flash calls of SeamlessM4T at
@@ -304,18 +344,21 @@ def check_flash(gen, timer, seed) -> dict:
              (8, 512, 512, 24, 8, 64, True, None, bf16, False),
              (8, 512, 512, 48, 8, 128, True, None, bf16, False),
              (8, 512, 512, 32, 4, 64, True, None, fp32, False)]
-    # SeamlessM4T's calls (bf16, SDPA timed) draw from a generator of
-    # their own, so that the later phases draw the same weights as before
-    # they were added.
+    # SeamlessM4T's, gemma3_4b's and qwen2_vl_72b's calls (bf16, SDPA
+    # timed) draw from generators of their own, so that the later phases
+    # draw the same weights as before they were added.
     seamless = torch.Generator(device="cuda").manual_seed(seed)
     gemma = torch.Generator(device="cuda").manual_seed(seed)
+    vlm = torch.Generator(device="cuda").manual_seed(seed)
     cases = ([c + (gen, None) for c in cases]
              + [(B, Sq, Sk, Hq, Hkv, D, causal, None, bf16, True, seamless,
                  f"SeamlessM4T {use}")
                 for B, Sq, Sk, Hq, Hkv, D, causal, use in FLASH_SEAMLESS]
              + [(B, Sq, Sk, Hq, Hkv, D, True, window, getattr(torch, dt), True,
                  gemma, f"gemma3_4b {use}")
-                for B, Sq, Sk, Hq, Hkv, D, window, dt, use in FLASH_GEMMA])
+                for B, Sq, Sk, Hq, Hkv, D, window, dt, use in FLASH_GEMMA]
+             + [(VLM["B"], VLM["S"], VLM["S"], 64, 8, 128, True, None, bf16, True,
+                 vlm, "qwen2_vl_72b prefill")])
     tol = {bf16: TOL_BF16, fp32: TOL_FP32}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows, first = [], None
@@ -343,7 +386,7 @@ def check_flash(gen, timer, seed) -> dict:
         bnd, by = bound_ms(nbytes, flops,
                            H100_BF16_FLOPS if dtype == bf16 else H100_FP32_FLOPS)
         row = dict(case=(B, Sq, Sk, Hq, Hkv, D, causal, window, str(dtype)[6:]),
-                   route=routed, err=err, ok=ok,
+                   use=use, route=routed, err=err, ok=ok,
                    ms=timer.ms(lambda: flash_attention_cuda(q, k, v, **kw)),
                    plain_ms=timer.ms(lambda: flash_attention_xla(q, k, v, **kw),
                                      iters=5),
@@ -376,7 +419,7 @@ def check_flash(gen, timer, seed) -> dict:
     if not all(r["ok"] for r in rows):
         raise SystemExit("flash_attention kernel disagrees with its plain "
                          "version or took the wrong route")
-    return rows[0]
+    return {"main": rows[0], "qwen2_vl_72b": rows[-1]}
 
 
 def sass_count(lib: Path, opcode: str, marker: str = "") -> int:
@@ -501,7 +544,7 @@ def host_us(fn, calls: int = 200) -> float:
     return statistics.median(runs)
 
 
-def check_paged(gen, timer) -> dict:
+def check_paged(gen, timer, seed) -> dict:
     from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
@@ -510,15 +553,20 @@ def check_paged(gen, timer) -> dict:
     # DBRX's (G = 6, D 128) at the same shape, then TinyLlama's at a long
     # context (16384-32768 positions: 256 table columns, two pools of 2048
     # pages, 134 MB each), where the bytes bound and not the launch latency
-    # is the yardstick.
+    # is the yardstick.  qwen2_vl_72b's (G = 8, D 128) at phase 13's cache of
+    # 2304 positions draws from a generator of its own, so that the later
+    # cases and phases draw the same numbers as before it was added.
     B, page = 8, 128
+    vlm = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for label, Hq, Hkv, D, max_len, min_len, tol in (
-            ("decode", 32, 4, 64, 1024, 1, TOL_BF16),
-            ("granite-MoE decode", 24, 8, 64, 1024, 1, TOL_BF16),
-            ("DBRX decode", 48, 8, 128, 1024, 1, TOL_BF16),
-            ("long context", 32, 4, 64, 32768, 16384, TOL_PAGED_LONG)):
-        q, kp, vp, table, seq_lens = paged_inputs(gen, B, Hq, Hkv, D, page,
+    for label, Hq, Hkv, D, max_len, min_len, tol, g in (
+            ("decode", 32, 4, 64, 1024, 1, TOL_BF16, gen),
+            ("granite-MoE decode", 24, 8, 64, 1024, 1, TOL_BF16, gen),
+            ("DBRX decode", 48, 8, 128, 1024, 1, TOL_BF16, gen),
+            ("qwen2_vl_72b decode", 64, 8, 128, VLM["cache_len"], 1, TOL_BF16,
+             vlm),
+            ("long context", 32, 4, 64, 32768, 16384, TOL_PAGED_LONG, gen)):
+        q, kp, vp, table, seq_lens = paged_inputs(g, B, Hq, Hkv, D, page,
                                                   max_len, min_len)
         args = (q, kp, vp, table, seq_lens)
         before = dict(paged_attention_cuda.launches_by_route)
@@ -556,7 +604,7 @@ def check_paged(gen, timer) -> dict:
     if not all(r["ok"] for r in rows):
         raise SystemExit("paged_attention kernel disagrees with its plain "
                          "version or took the wrong route")
-    return rows[0]
+    return {"main": rows[0], "qwen2_vl_72b": rows[3]}
 
 
 def gla_work(q, v, w, chunk: int) -> tuple[int, int]:
@@ -667,8 +715,10 @@ def check_reduced_against_cpu(arch: str, seed: int) -> None:
     prefill and 4 paged steps.  For the MoE family also the forward's
     summed load-balance loss; for granite-MoE also the first layer's MoE at
     capacity factor 0.5 (tokens drop): its output, ``aux_loss`` and
-    ``dropped_frac``.  (The reduced DBRX has granite's E, K and widths, so
-    the same draws would give it the same MoE layer.)"""
+    ``dropped_frac``; for the vlm family (M-RoPE) a seeded embeds prefix of
+    8 rows in the prefill and the forward, whose logits are compared too.
+    (The reduced DBRX has granite's E, K and widths, so the same draws
+    would give it the same MoE layer.)"""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as TF
@@ -681,11 +731,16 @@ def check_reduced_against_cpu(arch: str, seed: int) -> None:
                         generator=torch.Generator().manual_seed(seed))
     moe_x = torch.randn(2, 20, cfg.d_model,
                         generator=torch.Generator().manual_seed(seed + 1))
+    embeds = None
+    if cfg.family == "vlm":
+        embeds = 0.02 * torch.randn(2, 8, cfg.d_model,
+                                    generator=torch.Generator().manual_seed(seed + 2))
     worst = 0.0
     outs, moe = {}, {}
     for dev, p in (("cpu", cpu_p), ("cuda", gpu_p)):
         t = tok.to(dev)
-        logits, cache = TF.lm_prefill(p, cfg, t[:, :16], cache_len=20)
+        e = None if embeds is None else embeds.to(dev)
+        logits, cache = TF.lm_prefill(p, cfg, t[:, :16], cache_len=20, embeds=e)
         paged = TF.lm_init_paged_cache(cfg, 2, 20, page=4,
                                        dtype=torch.float32, device=dev)
         fill_paged_pool(cache, paged, torch.arange(10, device=dev).flip(0))
@@ -695,6 +750,8 @@ def check_reduced_against_cpu(arch: str, seed: int) -> None:
                                                t[:, s:s + 1])[0])
         if cfg.family == "moe":
             moe[dev] = {"forward aux": TF.lm_forward(p, cfg, t)[1]}
+        if e is not None:
+            seq.append(TF.lm_forward(p, cfg, t, embeds=e)[0])
         if arch == MOE_ARCHS[0]:
             out, aux = MOE.moe_fwd(
                 {k: v[0] for k, v in p["blocks"]["moe"].items()}, moe_x.to(dev),
@@ -707,6 +764,8 @@ def check_reduced_against_cpu(arch: str, seed: int) -> None:
     for a, b in zip(outs["cpu"], outs["cuda"]):
         worst = max(worst, max_err(a, b))
     what = "prefill + 4 paged steps"
+    if embeds is not None:
+        what = "prefill with an embeds prefix + 4 paged steps, forward with it"
     if moe:
         what += "; " + ", ".join(f"{k} {v.item():.4f}"
                                  for k, v in moe["cuda"].items())
@@ -803,18 +862,26 @@ def graph_decode(label, step, params, state0, tokens, t0, eager_logits):
 
 
 def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
-              cache_len=1024, steps=8, page=128) -> dict:
+              cache_len=1024, steps=8, page=128, extra=None,
+              step_bound=None) -> dict:
+    """Prefill B x S (with the batch entries ``extra``, such as an embeds
+    prefix), dense and paged decode eager and captured, paged held against
+    dense, profiles beside ``step_bound`` (``(ms, what)`` of a decode step;
+    the weights read once by default).  Returns the launch counts, the
+    paged cache after the eager steps, the tokens and the eager dense
+    logits."""
     from repro_torch.models import transformer as TF
     from repro_torch.serve.engine import DecodeGraph, tree_clone
 
     cfg, dev = api.cfg, api.device
+    extra = extra or {}
     tokens = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=gen,
                            device=dev)
     with torch.inference_mode():
         _, cache, prefill_s, prefill_counts = timed_prefill(
             api, params, tokens, S, cache_len,
             {"flash_attention": flash_cuda, "paged_attention": paged_cuda},
-            {"flash_attention": cfg.num_layers, "paged_attention": 0})
+            {"flash_attention": cfg.num_layers, "paged_attention": 0}, extra)
         paged = TF.lm_init_paged_cache(cfg, B, cache_len, page=page,
                                        device=dev)
         perm = torch.randperm(B * cache_len // page, generator=gen, device=dev)
@@ -900,10 +967,12 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
         f"call {captured} ({cfg.num_layers} captured, the rest warm-up), none "
         "on replays")
     if dev.type == "cuda":
+        bound = step_bound or (weights_ms(params), "weights read once")
         with torch.inference_mode():
             for label, step in (
                     (f"{cfg.name} prefill", lambda t: api.prefill(
-                        params, {"tokens": tokens[:, :S]}, cache_len=cache_len)),
+                        params, {"tokens": tokens[:, :S], **extra},
+                        cache_len=cache_len)),
                     (f"{cfg.name} dense decode", lambda t: api.decode_step(
                         params, cache, t, tokens[:, t:t + 1])),
                     (f"{cfg.name} paged decode", lambda t: TF.lm_decode_step_paged(
@@ -913,9 +982,9 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
                     (f"{cfg.name} paged decode graph", lambda t: g_paged(
                         params, paged_g, t, tokens[:, t:t + 1]))):
                 profile_steps(label, step, S + steps - 2, 2,
-                              None if label.endswith("prefill")
-                              else weights_ms(params))
-    return {"counts": counts, "paged": paged}
+                              *((None,) if label.endswith("prefill") else bound))
+    return {"counts": counts, "paged": paged, "tokens": tokens,
+            "dense_logits": torch.stack(dense_logits)}
 
 
 def moe_routing(api, params, cache0, paged0, tokens, S, steps) -> dict:
@@ -1085,10 +1154,11 @@ def decode_logits(step, params, state, tokens, S, steps) -> torch.Tensor:
     return torch.stack(out)
 
 
-def prefill_logits(api, params, frames, tokens, S, steps, cache_len):
-    """Last logits of prefill(S + n) over the same frames, n = 1..steps."""
+def prefill_logits(api, params, extra, tokens, S, steps, cache_len):
+    """Last logits of prefill(S + n) over the same batch entries ``extra``
+    (frames, embeds), n = 1..steps."""
     return torch.stack([
-        api.prefill(params, {"tokens": tokens[:, :S + n], "frames": frames},
+        api.prefill(params, {"tokens": tokens[:, :S + n], **extra},
                     cache_len=cache_len)[0].float()
         for n in range(1, steps + 1)])
 
@@ -1152,7 +1222,8 @@ def seamless_path(api, params, gen, flash_cuda, B, S_enc, S, steps) -> None:
             raise SystemExit(f"{cfg.name} decode graph: flash launches {captured}, "
                              f"want {n_cap} on wgmma at the first call, none on "
                              "replays")
-        full = prefill_logits(api, params, frames, tokens, S, steps, cache_len)
+        full = prefill_logits(api, params, {"frames": frames}, tokens, S, steps,
+                              cache_len)
         for dst, src in zip(tree_leaves(state_g), tree_leaves(state0)):
             dst.copy_(src)
         roll_cross(state_g)
@@ -1334,6 +1405,86 @@ def gemma3_path(api, params, gen, flash_cuda, B, S, cache_len, steps) -> None:
                 bound, what)
 
 
+def vlm_embeds(cfg, gen, B, S) -> torch.Tensor:
+    """A bf16 embeds prefix (B, V, d_model) drawn N(0, 0.02) from ``gen``
+    (on its device), V = min(VLM_PATCH_TOKENS, S // 4): the reference's
+    patch rows for a prompt of S positions (stub vision frontend)."""
+    from repro_torch.models.registry import VLM_PATCH_TOKENS
+
+    V = min(VLM_PATCH_TOKENS, S // 4)
+    return (0.02 * torch.randn(B, V, cfg.d_model, generator=gen,
+                               device=gen.device)).bfloat16()
+
+
+def kv_step_bound(params, cfg, B, kv_len) -> tuple[float, str]:
+    """A lower bound on a full-attention decode step in ms, and what it
+    counts: the weights and every layer's K/V of the ``kv_len + 1``
+    positions the step attends to, each read once."""
+    from repro_torch.serve.engine import tree_leaves
+
+    parts = {"weights": sum(t.numel() * t.element_size() for t in tree_leaves(params)),
+             "K/V": cfg.num_layers * B * (kv_len + 1) * 2 * 2 * cfg.num_kv_heads * cfg.hd}
+    ms = {k: v / H100_BYTES_PER_S * 1e3 for k, v in parts.items()}
+    what = " + ".join(f"{k} {parts[k] / 1e9:.3f} GB ({ms[k]:.3f} ms)" for k in parts)
+    return sum(ms.values()), f"bound ({what}) read once"
+
+
+def vlm_continuation(api, params, tokens, embeds, decoded, S, steps,
+                     cache_len) -> dict:
+    """The continuation test of phase 13: ``decoded``, the logits of
+    ``steps`` dense decode steps after prefill(S) over ``embeds``, against
+    the last logits of prefill(S + n) over the same embeds, n = 1..steps;
+    and the planted fault, the same steps after a prefill in which every
+    sequence carries its neighbour's embeds (rolled one along the batch),
+    against the same reference.  Returns ``near_tie`` of both and the
+    reference's mean and largest |logit|."""
+    full = prefill_logits(api, params, {"embeds": embeds}, tokens, S, steps,
+                          cache_len)
+    _, bad = api.prefill(params, {"tokens": tokens[:, :S],
+                                  "embeds": embeds.roll(1, dims=0)},
+                         cache_len=cache_len)
+    faulted = decode_logits(api.decode_step, params, bad, tokens, S, steps)
+    return {"cont": near_tie(full, decoded), "fault": near_tie(full, faulted),
+            "logit_abs": full.abs().mean().item(),
+            "logit_max": full.abs().max().item()}
+
+
+def vlm_path(api, params, gen, flash_cuda, paged_cuda, B, S, cache_len, steps,
+             page) -> dict:
+    """qwen2_vl_72b: phase 4's path (``main_path``) with a seeded embeds
+    prefix in every prefill, its profiles beside the weights and K/V read
+    once, then ``vlm_continuation`` on the eager dense steps: within
+    TOL_CONT_LOGITS, and the planted fault outside it.  Returns
+    ``main_path``'s result."""
+    cfg = api.cfg
+    embeds = vlm_embeds(cfg, gen, B, S)
+    bound = kv_step_bound(params, cfg, B, S + steps - 1)
+    r = main_path(api, params, gen, flash_cuda, paged_cuda, B=B, S=S,
+                  cache_len=cache_len, steps=steps, page=page,
+                  extra={"embeds": embeds}, step_bound=bound)
+    with torch.inference_mode():
+        sync(api.device)
+        t0 = time.perf_counter()
+        c = vlm_continuation(api, params, r["tokens"], embeds, r["dense_logits"],
+                             S, steps, cache_len)
+        sync(api.device)
+    tol = TOL_CONT_LOGITS[cfg.name]
+    for what, (err, same, n_tok, gap) in (("", c["cont"]), (
+            ", embeds rolled one sequence (planted fault)", c["fault"])):
+        log(f"{cfg.name} prefill({S}, {embeds.shape[1]} embeds rows) + n decode "
+            f"steps vs prefill({S}+n), n = 1..{steps}{what}: max|err| {err:.4f} "
+            f"(limit {tol}; mean |logit| {c['logit_abs']:.4f}, largest "
+            f"{c['logit_max']:.4f}); greedy tokens equal {same}/{n_tok}, largest "
+            f"prefill-logit gap where they differ {gap:.4f}")
+    log(f"{cfg.name} continuation run {time.perf_counter() - t0:.1f} s")
+    err, _, _, gap = c["cont"]
+    if not (torch.isfinite(r["dense_logits"]).all() and err <= tol and gap <= tol):
+        raise SystemExit(f"{cfg.name} decode does not continue its prefill")
+    if c["fault"][0] <= tol:
+        raise SystemExit(f"{cfg.name}: the planted fault passes the limit {tol}")
+    return r
+
+
 def weights_ms(params) -> float:
     """A lower bound on a decode step's time in ms: its weights read once
     over the card's memory rate (the cache it also reads is left out)."""
@@ -1450,14 +1601,18 @@ def serve_batch(api, params, name: str, cache_len: int = 256) -> None:
 def kv_paging(paged: dict, blocks: list[tuple[int, int]], hbm_blocks: int) -> dict:
     """Spill the K pages ``blocks`` (layer, physical page) of the pool to the
     DDS page store and fetch the cold ones back through the offload path;
-    each must come back bit-exact."""
+    each must come back bit-exact.  A K page larger than ``KV_STORE_PAYLOAD``
+    spans several store pages (``PagedKVEngine.parts``), each an offloaded
+    read."""
     from repro_torch.serve.engine import PagedKVEngine
     from repro_torch.storage.pagestore import PAGE_HDR, PageStore
 
     pool = paged["k_pool"]
     page_bytes = pool[0, 0].numel() * pool.element_size()
-    store = PageStore(page_size=page_bytes + PAGE_HDR.size,
-                      num_pages=len(blocks))
+    payload = min(page_bytes, KV_STORE_PAYLOAD)
+    parts = -(-page_bytes // payload)
+    store = PageStore(page_size=payload + PAGE_HDR.size,
+                      num_pages=parts * len(blocks))
     eng = PagedKVEngine(store, block_bytes=page_bytes, hbm_blocks=hbm_blocks)
     for l, p in blocks:
         data = pool[l, p].contiguous().view(torch.uint8).cpu().numpy().tobytes()
@@ -1472,11 +1627,13 @@ def kv_paging(paged: dict, blocks: list[tuple[int, int]], hbm_blocks: int) -> di
         if not torch.equal(back.view_as(pool[l, p]).to(pool.device), pool[l, p]):
             raise SystemExit(f"cold block {(l, p)} came back changed")
     offloaded = store.server.offload.stats.completed - before
-    if (eng.spills != len(blocks) - hbm_blocks or eng.fetches != len(cold)
-            or offloaded != len(cold) or store.host_served):
-        raise SystemExit(f"kv paging: spills {eng.spills} fetches {eng.fetches} "
-                         f"offloaded {offloaded} host-served {store.host_served}")
-    return {"page_bytes": page_bytes, "spills": eng.spills,
+    if (eng.parts != parts or eng.spills != len(blocks) - hbm_blocks
+            or eng.fetches != len(cold) or offloaded != parts * len(cold)
+            or store.host_served):
+        raise SystemExit(f"kv paging: {eng.parts} store pages a K page, spills "
+                         f"{eng.spills} fetches {eng.fetches} offloaded "
+                         f"{offloaded} host-served {store.host_served}")
+    return {"page_bytes": page_bytes, "parts": parts, "spills": eng.spills,
             "fetches": eng.fetches, "offloaded": offloaded}
 
 
@@ -1546,10 +1703,10 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     timer = Timer()
     flash = check_flash(gen, timer, args.seed)
-    paged_row = check_paged(gen, timer)
+    paged_row = check_paged(gen, timer, args.seed)
     gla_row = check_gla(gen, timer)
     del timer
-    for arch in ("tinyllama_1p1b",) + MOE_ARCHS:
+    for arch in ("tinyllama_1p1b",) + MOE_ARCHS + ("qwen2_vl_72b",):
         check_reduced_against_cpu(arch, args.seed)
     for arch in ("rwkv6_7b", "zamba2_1p2b", "seamless_m4t_medium", "gemma3_4b"):
         check_reduced_api_against_cpu(arch, args.seed)
@@ -1654,20 +1811,64 @@ def main() -> int:
     del api, params
     torch.cuda.empty_cache()
     log(f"gemma3_4b phase {time.perf_counter() - t_phase:.1f} s")
+
+    # 13. the vlm family at full width and reduced depth
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2_vl_72b")
+    log(f"qwen2_vl_72b: {VLM_LAYERS} of its {cfg.num_layers} layers at full "
+        "width (bf16 weights of all 80 are about 145 GB)")
+    cfg = dataclasses.replace(cfg, num_layers=VLM_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    api = build_model(cfg)
+    params, _ = api.init(gen)
+    init_peak = torch.cuda.max_memory_allocated()
+    weights = weights_ms(params) * H100_BYTES_PER_S / 1e3
+    layer = weights_ms(params["blocks"]) * H100_BYTES_PER_S / 1e3 / cfg.num_layers
+    log(f"qwen2_vl_72b: weights {weights / 1e9:.3f} GB ({layer / 1e9:.3f} GB a "
+        f"layer); peak device memory during init {init_peak / 2**30:.3f} GiB "
+        f"(weights + one layer {(weights + layer) / 2**30:.3f} GiB)")
+    if init_peak > weights + layer + INIT_SLACK:
+        raise SystemExit("qwen2_vl_72b init held more than its weights, one "
+                         "layer and the slack of drawing one matrix")
+    torch.cuda.reset_peak_memory_stats()
+    vlm = vlm_path(api, params, gen, flash_attention_cuda, paged_attention_cuda,
+                   **VLM)
+    log(f"qwen2_vl_72b: launches {vlm['counts']}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB during prefill, "
+        "decode and the continuation test")
+    serve_batch(api, params, f"{name} ({card})")
+    pool_pages = vlm["paged"]["block_table"][0].tolist()     # sequence 0
+    kv = kv_paging(vlm["paged"], [(l, p) for l in range(3) for p in pool_pages],
+                   hbm_blocks=8)
+    log(f"qwen2_vl_72b kv paging: {kv['spills']} K pages of {kv['page_bytes']} "
+        f"bytes ({kv['parts']} store pages each) spilled to the page store, "
+        f"{kv['fetches']} fetched back bit-exact, {kv['offloaded']} offloaded "
+        "reads")
+    vlm_counts = vlm["counts"]
+    del api, params, vlm
+    torch.cuda.empty_cache()
+    log(f"qwen2_vl_72b phase {time.perf_counter() - t_phase:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     entries = []
     # name, timed row, main-path launches, source, TPU kernel.  The kernel
-    # route is the one the timed case was asserted to take.
+    # route is the one the timed case was asserted to take; the last two are
+    # the same kernels at qwen2_vl_72b's heads, with phase 13's launches.
     for kname, row, launches, source, line in (
-            ("flash_attention", flash, tiny_counts["flash_attention"],
+            ("flash_attention", flash["main"], tiny_counts["flash_attention"],
              "flash_attention_wgmma", "src/repro/kernels/flash_attention/kernel.py:96"),
-            ("paged_attention", paged_row, tiny_counts["paged_attention"],
+            ("paged_attention", paged_row["main"], tiny_counts["paged_attention"],
              "paged_attention_split", "src/repro/kernels/paged_attention/kernel.py:84"),
             ("gla_scan", gla_row, counts["rwkv6_7b"]["gla_scan"],
-             "gla_scan_mma", "src/repro/kernels/ssm_scan/kernel.py:76")):
+             "gla_scan_mma", "src/repro/kernels/ssm_scan/kernel.py:76"),
+            ("flash_attention@qwen2_vl_72b", flash["qwen2_vl_72b"],
+             vlm_counts["flash_attention"], "flash_attention_wgmma",
+             "src/repro/kernels/flash_attention/kernel.py:96"),
+            ("paged_attention@qwen2_vl_72b", paged_row["qwen2_vl_72b"],
+             vlm_counts["paged_attention"], "paged_attention_split",
+             "src/repro/kernels/paged_attention/kernel.py:84")):
         entries.append({
-            "name": kname, "route": "cuda",
+            "name": kname, "route": "cuda", "case": str(row["case"]),
             "kernel_route": row["route"][0],
             "source": f"src/repro_torch/csrc/{source}.cu", "replaces": line,
             "launches": launches, "max_abs_err": row["err"],

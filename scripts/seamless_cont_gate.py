@@ -56,7 +56,8 @@ def main() -> int:
             CS.roll_cross(bad)
             decoded = CS.decode_logits(api.decode_step, params, cache, tokens, S, steps)
             faulted = CS.decode_logits(api.decode_step, params, bad, tokens, S, steps)
-            full = CS.prefill_logits(api, params, frames, tokens, S, steps, cache_len)
+            full = CS.prefill_logits(api, params, {"frames": frames}, tokens, S,
+                                     steps, cache_len)
         cont, fault = CS.near_tie(full, decoded), CS.near_tie(full, faulted)
         rows.append({"seed": seed, "cont_err": cont[0], "cont_gap": cont[3],
                      "cont_same": cont[1], "fault_err": fault[0],

@@ -5,7 +5,10 @@ synthetic requests, reporting decode throughput and the DDS KV-paging
 statistics when --paged is set.  Runs on the card unless ``--device cpu``;
 ``--no-reduced`` serves the architecture at full width.  On the card the
 decode step is captured in a CUDA graph and replayed; on the CPU it runs
-eagerly; the first line printed says which.
+eagerly; the first line printed says which.  ``qwen2_vl_72b`` serves its
+reduced config; at full width its 80 layers (about 145 GB of bf16
+weights) fit no one 80 GB card, and there is no depth flag, as in the
+reference's launcher (chip_smoke.py serves 24 of them).
 """
 
 from __future__ import annotations

@@ -97,26 +97,43 @@ def init_generator(generator: torch.Generator | None, device):
     return generator, dev
 
 
-def _stack(trees: list) -> Any:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
 def stack_layer_params(init_fn, generator: torch.Generator, num: int):
     """Run an init ``num`` times -> params stacked on a leading axis.
 
+    Each ``(num, ...)`` leaf is allocated once, from the first layer's
+    shapes and dtypes (nested trees too), and every layer is copied into
+    its slot as it is drawn, so the peak holds the stacked weights and one
+    layer, not a list of layers beside their stack.  The layers draw from
+    ``generator`` in order, as a stack of ``num`` inits would.
+
     Returns (stacked params, axes tree with "layers" prepended).
     """
-    inits = [init_fn(generator) for _ in range(num)]
-    params = _stack([p for p, _ in inits])
+    first, axes = init_fn(generator)
+
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return t.new_empty((num, *t.shape))
+
+    def put(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    params = alloc(first)
+    put(params, first, 0)
+    del first
+    for i in range(1, num):
+        put(params, init_fn(generator)[0], i)
 
     def prepend(a):
         if isinstance(a, dict):
             return {k: prepend(v) for k, v in a.items()}
         return ("layers",) + tuple(a)
 
-    return params, prepend(inits[0][1])
+    return params, prepend(axes)
 
 
 def layer_views(blocks: dict, n: int) -> list[dict]:
@@ -201,9 +218,10 @@ def apply_mrope(x, positions_3d, theta: float = 1e6,
     half = D // 2
     assert sum(sections) == half, "mrope sections must sum to head_dim/2"
     freqs = _rope_freqs(D, theta, x.device)                 # (half,)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))            # (half,) in {0,1,2}
+    # (half,) in {0,1,2}, from the section boundaries as Python ints: no
+    # copy from the host and no read of it, so a CUDA graph can capture it.
+    i = torch.arange(half, device=x.device)
+    sec_id = (i >= sections[0]).long() + (i >= sections[0] + sections[1]).long()
     pos = torch.gather(positions_3d.float(), 2,
                        sec_id[None, None, :].expand(B, S, half))  # (B,S,half)
     ang = pos * freqs[None, None, :]

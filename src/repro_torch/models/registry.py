@@ -5,11 +5,13 @@ Port of ``repro.models.registry``.  ``build_model(cfg, device)`` returns a
 meta-device tensors in place of ``ShapeDtypeStruct``.  Ported: the dense
 and MoE transformer (whose ``loss_fn`` adds 0.01 x the summed load-balance
 loss, as the JAX package's), with full attention or gemma3's local:global
-pattern (its nested ``groups``/``tail`` params and ring caches), ssm
+pattern (its nested ``groups``/``tail`` params and ring caches), vlm
+(Qwen2-VL: M-RoPE, and train and prefill batches carry a bf16 ``embeds``
+prefix of ``min(VLM_PATCH_TOKENS, seq_len // 4)`` patch embeddings, a stub
+of the vision frontend as in the reference; decode takes none), ssm
 (RWKV6), hybrid (Zamba2) and encdec (SeamlessM4T: batches carry
 ``frames``, and ``init_cache`` takes an ``enc_len`` that defaults to
-``cache_len``).  The vlm family raises ``NotImplementedError`` naming its
-ROADMAP.md item (``transformer.check_supported``).
+``cache_len``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from repro_torch.models import ssm_stack as SS
 from repro_torch.models import transformer as TF
 
 DEC_PREFILL_FRAC = 8   # encdec prefill specs: a decoder prompt of seq_len / 8
+VLM_PATCH_TOKENS = 1024    # stub vision prefix length, as the reference's
 
 
 def cross_entropy(logits, labels):
@@ -69,9 +72,14 @@ def _meta(shape, dtype=torch.int32):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def _token_specs(shape: ShapeConfig) -> dict:
+def _token_specs(shape: ShapeConfig, cfg: ModelConfig | None = None) -> dict:
+    """Tokens (and labels to train); for the vlm family also the bf16
+    ``embeds`` prefix of ``min(VLM_PATCH_TOKENS, S // 4)`` rows."""
     B, S = shape.global_batch, shape.seq_len
     specs = {"tokens": _meta((B, S)), "labels": _meta((B, S))}
+    if cfg is not None and cfg.family == "vlm":
+        specs["embeds"] = _meta((B, min(VLM_PATCH_TOKENS, S // 4), cfg.d_model),
+                                torch.bfloat16)
     if shape.kind == "prefill":
         specs.pop("labels")
     return specs
@@ -167,7 +175,7 @@ def build_model(cfg: ModelConfig,
         if fam == "encdec":
             return _encdec_specs(cfg, shape)
         if shape.kind in ("train", "prefill"):
-            return _token_specs(shape)
+            return _token_specs(shape, cfg)
         # decode: one token and the state of a seq_len + 1 cache
         B = shape.global_batch
         return _decode_specs(B, f.state(cfg, B, shape.seq_len + 1, "meta"))

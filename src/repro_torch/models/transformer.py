@@ -1,5 +1,5 @@
-"""Decoder-only LM, the dense and MoE families, with full attention or
-gemma3's local:global pattern.
+"""Decoder-only LM, the dense, MoE and vlm families, with full attention
+or gemma3's local:global pattern.
 
 Port of ``repro.models.transformer``.  Layer params are stacked on a
 leading "layers" axis as in JAX; each ``lax.scan`` over them becomes a
@@ -16,14 +16,20 @@ attention layer, stacked ``(n_groups, ...)``), and ``tail`` the
 ``num_layers % group_size`` window layers left over.  Local and tail layers
 keep rings of ``W = min(window, cache_len)`` slots (position p at slot
 p % W), global layers the full length; it has no paged decode, as in the
-reference.  The ``vlm`` family raises ``NotImplementedError``: it is item 4
-(second half) of Queue 1 in ROADMAP.md.
+reference.
+
+The ``vlm`` family (Qwen2-VL) is the dense block with M-RoPE: positions are
+(B, S, 3), one stream each for (temporal, height, width), equal for a text
+token.  ``lm_forward`` and ``lm_prefill`` take an ``embeds`` prefix (B, V,
+d_model), precomputed patch embeddings (the vision frontend is a stub, as
+in the reference) that replace the first V token embeddings; the decode
+steps take none.
 
 Entry points:
   init_lm(cfg, generator, device)             -> (params, logical-axes tree)
-  lm_forward(params, cfg, tokens)             -> (logits, aux)   (forward only)
+  lm_forward(params, cfg, tokens, embeds)     -> (logits, aux)   (forward only)
   lm_init_cache(cfg, batch, cache_len, ...)   -> cache dict
-  lm_prefill(params, cfg, tokens, ...)        -> (logits, cache)
+  lm_prefill(params, cfg, tokens, ..., embeds) -> (logits, cache)
   lm_decode_step(params, cfg, cache, kv_len, token) -> (logits, cache)
   lm_init_paged_cache(cfg, batch, max_len, ...)     -> paged cache dict
   lm_decode_step_paged(params, cfg, cache, kv_len, token) -> (logits, cache)
@@ -43,12 +49,8 @@ from repro_torch.models.moe import init_moe, moe_fwd
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the families not ported yet."""
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: the vlm family (M-RoPE, embeds prefix) is not "
-            "ported yet (ROADMAP.md, Queue 1 item 4)")
-    if cfg.family not in ("dense", "moe"):
+    """Raise for a family that is not a transformer."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not a transformer family")
 
@@ -216,8 +218,18 @@ def _final(params, cfg, x):
     return L.unembed_fwd(params["embedding"], x)
 
 
+def _embed(params, tokens, embeds=None):
+    """Token embeddings, the first V replaced by ``embeds`` (B, V, d_model)
+    where given (the vlm's patch prefix)."""
+    x = L.embed_fwd(params["embedding"], tokens)
+    if embeds is None:
+        return x
+    return torch.cat([embeds.to(x.dtype), x[:, embeds.shape[1]:]], dim=1)
+
+
 def _positions(cfg: ModelConfig, B: int, S: int, device, offset=0):
-    """(B, S) positions from ``offset``, an int or a 0-d tensor."""
+    """(B, S) positions from ``offset``, an int or a 0-d tensor; (B, S, 3)
+    with the same position on each axis for M-RoPE."""
     pos = (torch.arange(S, device=device)[None] + offset).expand(B, S)
     if cfg.mrope:
         return pos[..., None].expand(B, S, 3)
@@ -230,13 +242,12 @@ def _positions(cfg: ModelConfig, B: int, S: int, device, offset=0):
 
 
 def lm_forward(params, cfg: ModelConfig, tokens, embeds=None):
-    """tokens: (B, S) int.  Returns (logits, aux_loss)."""
+    """tokens: (B, S) int; ``embeds``: an optional (B, V, d_model) prefix
+    that replaces the first V token embeddings.  Returns (logits,
+    aux_loss)."""
     check_supported(cfg)
-    if embeds is not None:
-        raise NotImplementedError("embeds prefixes belong to the vlm family "
-                                  "(ROADMAP.md, Queue 1 item 4)")
     B, S = tokens.shape
-    x = L.embed_fwd(params["embedding"], tokens)
+    x = _embed(params, tokens, embeds)
     pos = _positions(cfg, B, S, tokens.device)
     aux = torch.zeros((), device=x.device)
     for blk, _, _, window, theta in _layers(params, cfg):
@@ -297,15 +308,13 @@ def lm_prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None,
     cache of ``cache_len`` positions, zero past the prompt; a window
     layer's into its ring of W slots, position p at slot p % W (the
     reference's ``ring``: zero past the prompt when S <= W, else the last
-    W positions rolled by S % W).
+    W positions rolled by S % W).  ``embeds`` (B, V, d_model), where given,
+    replace the first V token embeddings, as in ``lm_forward``.
     """
     check_supported(cfg)
-    if embeds is not None:
-        raise NotImplementedError("embeds prefixes belong to the vlm family "
-                                  "(ROADMAP.md, Queue 1 item 4)")
     B, S = tokens.shape
     cache_len = cache_len or S
-    x = L.embed_fwd(params["embedding"], tokens)
+    x = _embed(params, tokens, embeds)
     pos = _positions(cfg, B, S, tokens.device)
     cache = lm_init_cache(cfg, B, cache_len, dtype=x.dtype, device=x.device)
     for blk, kind, i, window, theta in _layers(params, cfg):

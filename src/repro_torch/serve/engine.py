@@ -49,12 +49,20 @@ class PagedKVEngine:
     coldest blocks are written to the DDS page store (HOST path — writes
     belong on the host, §3) and their slots recycled.  A query that needs a
     cold block triggers a fetch via the OFFLOAD path (DPU-served read).
+
+    A block larger than the store's page payload spans ``parts`` store
+    pages, written and fetched in order: the store's pages stay the size
+    its host path writes whole (a page larger than one write request of the
+    storage server is split on the way and never cached for the DPU, so it
+    could not be offloaded).  ``fetches`` counts blocks, the store's
+    offload counters pages.
     """
 
     def __init__(self, page_store: PageStore, block_bytes: int,
                  hbm_blocks: int):
         self.store = page_store
         self.block_bytes = block_bytes
+        self.parts = max(1, -(-block_bytes // page_store.payload_size))
         self.hbm_blocks = hbm_blocks
         self.pool: dict[int, tuple[int, int, int]] = {}  # slot -> (seq,layer,blk)
         self.where: dict[tuple[int, int, int], int] = {}  # key -> slot
@@ -64,14 +72,15 @@ class PagedKVEngine:
         self.fetches = 0
         self.hits = 0
         self._client: DDSClient | None = None
-        self._page_ids: dict[tuple[int, int, int], int] = {}
+        self._page_ids: dict[tuple[tuple[int, int, int], int], int] = {}
 
-    def _page_id(self, key: tuple[int, int, int]) -> int:
-        """Dense page ids (the page store's file is offset = id * page_size)."""
-        pid = self._page_ids.get(key)
+    def _page_id(self, key: tuple[int, int, int], part: int = 0) -> int:
+        """Dense page ids of a block's parts (the page store's file is
+        offset = id * page_size)."""
+        pid = self._page_ids.get((key, part))
         if pid is None:
             pid = len(self._page_ids)
-            self._page_ids[key] = pid
+            self._page_ids[(key, part)] = pid
         return pid
 
     def put_block(self, seq: int, layer: int, blk: int, data: bytes) -> int:
@@ -86,7 +95,10 @@ class PagedKVEngine:
         self.where[key] = slot
         self.lru.append(key)
         # Write-through to the store on the HOST path (durable + cacheable).
-        self.store.replay(self._page_id(key), ver, data[: self.store.payload_size])
+        size = self.store.payload_size
+        for part in range(self.parts):
+            self.store.replay(self._page_id(key, part), ver,
+                              data[part * size:(part + 1) * size])
         return slot
 
     def _free_slot(self) -> int:
@@ -115,17 +127,19 @@ class PagedKVEngine:
             return None  # already in the pool; caller uses the block table
         if self._client is None:
             self._client = DDSClient(self.store.server)
-        rid = self._client._next_req
-        self._client._next_req += 1
-        msg = PageStore.encode_get(rid, self._page_id(key),
-                                   self.versions.get(key, 0))
-        self._client._send(encode_batch([msg]))
-        status, body = self._client.wait(rid)
         self.fetches += 1
-        if status != 0:
-            return None
-        _, payload = PageStore.decode_page(body)
-        return payload
+        payloads = []
+        for part in range(self.parts):
+            rid = self._client._next_req
+            self._client._next_req += 1
+            msg = PageStore.encode_get(rid, self._page_id(key, part),
+                                       self.versions.get(key, 0))
+            self._client._send(encode_batch([msg]))
+            status, body = self._client.wait(rid)
+            if status != 0:
+                return None
+            payloads.append(PageStore.decode_page(body)[1])
+        return b"".join(payloads)
 
 
 # ---------------------------------------------------------------------------

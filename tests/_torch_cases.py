@@ -47,6 +47,14 @@ FA_GEMMA_CASES = [
     (2, 100, 100, 2, 1, 320, True, 48),
     (1, 64, 192, 4, 2, 320, True, 100),
 ]
+# B, Sq, Sk, Hq, Hkv, D, causal, window: qwen2_vl_72b's heads (64 over 8 of
+# 128: G 8 at D 128, the heaviest query tile the wgmma kernel takes at D
+# 128), on the 64-row tile grid, at a ragged S and at Sq < Sk.
+FA_VLM_CASES = [
+    (1, 256, 256, 16, 2, 128, True, None),
+    (2, 130, 130, 8, 1, 128, True, None),
+    (1, 64, 320, 16, 2, 128, True, None),
+]
 # B, Hq, Hkv, D, pool_pages, page, max_pages  (PA_CASES of tests/test_kernels.py)
 PA_CASES = [
     (2, 8, 2, 64, 16, 16, 4),
@@ -57,7 +65,8 @@ PA_CASES = [
 # Hq, Hkv, D, pool_pages, page, max_pages, seq_lens: calls of the split
 # paged route (D 64 or 128, G = Hq / Hkv in 1..9, page a multiple of 16), at
 # the G of the configs the paged path serves or will serve (Zamba2 1,
-# granite 3, qwen2.5 5, DBRX 6, TinyLlama 8, starcoder2 9).  The lengths straddle
+# granite 3, qwen2.5 5, DBRX 6, TinyLlama 8 at D 64 and qwen2_vl 8 at D 128,
+# starcoder2 9).  The lengths straddle
 # the page and split boundaries (C = min(max_pages, 8) ranks take pages
 # r, r + C, ...): 1, page - 1, page, page + 1, C * page +- 1 and
 # max_pages * page; the last case's table is wider than the pages used, so
@@ -71,6 +80,7 @@ PA_SPLIT_CASES = [
     (36, 4, 64, 12, 128, 3, (384, 200)),
     (32, 4, 64, 64, 16, 32, (17, 16, 3)),
     (48, 8, 128, 16, 128, 5, (640, 513, 128, 1)),  # DBRX's heads
+    (64, 8, 128, 40, 128, 9, (1152, 1025, 129, 1)),  # qwen2_vl_72b's heads
 ]
 # B, H, S, K, V, chunk  (GLA_CASES of tests/test_kernels.py)
 GLA_CASES = [

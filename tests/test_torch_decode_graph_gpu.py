@@ -10,8 +10,10 @@ CUDA-core one), RWKV6-7B (2 layers), Zamba2-1.2B (3 layers: one group
 and a tail), granite-MoE-3B (2 layers of 8 experts top-2; dense, and
 paged on the split route) and gemma3_4b (5 layers: two groups of a
 window layer and a global one, and a window tail; rings of 16 slots that
-the prompt has wrapped, and the steps wrap again) in bf16 with random
-weights from a seed.  A replay runs the
+the prompt has wrapped, and the steps wrap again) and qwen2_vl_72b (2
+layers; M-RoPE, a prompt whose first 8 positions are a seeded embeds
+prefix; dense, and paged on the split route at head dim 64) in bf16 with
+random weights from a seed.  A replay runs the
 kernels the eager step launches, in the same order, on the same inputs, so
 logits and state must be bitwise equal.
 """
@@ -29,18 +31,21 @@ from repro_torch.serve import engine
 from repro_torch.serve.engine import BatchScheduler, DecodeGraph, Request
 
 STEPS = ["dense", "paged_split", "paged_simt", "rwkv6", "zamba2", "moe",
-         "moe_paged_split", "local_global"]
+         "moe_paged_split", "local_global", "vlm", "vlm_paged_split"]
 ARCH = {"dense": "tinyllama_1p1b", "paged_split": "tinyllama_1p1b",
         "paged_simt": "tinyllama_1p1b", "rwkv6": "rwkv6_7b",
         "zamba2": "zamba2_1p2b", "moe": "granite_moe_3b_a800m",
-        "moe_paged_split": "granite_moe_3b_a800m", "local_global": "gemma3_4b"}
+        "moe_paged_split": "granite_moe_3b_a800m", "local_global": "gemma3_4b",
+        "vlm": "qwen2_vl_72b", "vlm_paged_split": "qwen2_vl_72b"}
 LAYERS = {"tinyllama_1p1b": dict(num_layers=2), "rwkv6_7b": dict(num_layers=2),
           "zamba2_1p2b": dict(num_layers=3, attn_every=2),
           "granite_moe_3b_a800m": dict(num_layers=2),
-          "gemma3_4b": dict(num_layers=5, group_size=2, window=16)}
+          "gemma3_4b": dict(num_layers=5, group_size=2, window=16),
+          "qwen2_vl_72b": dict(num_layers=2)}
 PAGED_ROUTE = {"paged_split": "split", "paged_simt": "simt",
-               "moe_paged_split": "split"}
+               "moe_paged_split": "split", "vlm_paged_split": "split"}
 B, PROMPT, N_STEPS, CACHE_LEN, PAGE = 4, 40, 8, 64, 16
+EMBEDS = 8          # the vlm prompt's patch prefix
 
 
 @pytest.fixture
@@ -70,9 +75,12 @@ def _start(kind, device):
     gen = torch.Generator(device=device).manual_seed(1)
     tok = torch.randint(0, cfg.vocab_size, (B, PROMPT + N_STEPS),
                         generator=gen, device=device, dtype=torch.int32)
+    batch = {"tokens": tok[:, :PROMPT]}
+    if cfg.family == "vlm":
+        batch["embeds"] = 0.02 * torch.randn(B, EMBEDS, cfg.d_model, generator=gen,
+                                             device=device).bfloat16()
     with torch.inference_mode():
-        _, state = api.prefill(params, {"tokens": tok[:, :PROMPT]},
-                               cache_len=CACHE_LEN)
+        _, state = api.prefill(params, batch, cache_len=CACHE_LEN)
     step = api.decode_step
     if kind in PAGED_ROUTE:
         paged = TF.lm_init_paged_cache(cfg, B, CACHE_LEN, page=PAGE,
@@ -161,11 +169,12 @@ def test_paged_graph_follows_a_remapped_block_table(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["tinyllama_1p1b", "rwkv6_7b", "zamba2_1p2b",
-                                  "granite_moe_3b_a800m", "gemma3_4b"])
+                                  "granite_moe_3b_a800m", "gemma3_4b",
+                                  "qwen2_vl_72b"])
 def test_graph_and_eager_schedulers_give_the_same_tokens(arch, cuda_device):
     kind = {"tinyllama_1p1b": "dense", "rwkv6_7b": "rwkv6",
             "zamba2_1p2b": "zamba2", "granite_moe_3b_a800m": "moe",
-            "gemma3_4b": "local_global"}[arch]
+            "gemma3_4b": "local_global", "qwen2_vl_72b": "vlm"}[arch]
     api, params = _api(kind, cuda_device)
     prompts = torch.randint(0, api.cfg.vocab_size, (10, 4),
                             generator=torch.Generator().manual_seed(3)).numpy()

@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (FA_CASES, FA_ENCDEC_CASES, FA_GEMMA_CASES, FA_MOE_CASES, PA_CASES,
-                          TOL, fa_inputs, pa_inputs)
+from _torch_cases import (FA_CASES, FA_ENCDEC_CASES, FA_GEMMA_CASES, FA_MOE_CASES, FA_VLM_CASES,
+                          PA_CASES, PA_SPLIT_CASES, TOL, fa_inputs, pa_inputs,
+                          pa_split_inputs)
 from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ops import flash_attention_xla as jax_fa_xla
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
@@ -57,6 +58,13 @@ def test_flash_attention_xla_matches_jax(case, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FA_MOE_CASES)
 def test_flash_attention_xla_matches_jax_at_moe_heads(case, dtype):
+    _flash_xla_matches_jax(case, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_VLM_CASES)
+def test_flash_attention_xla_matches_jax_at_vlm_heads(case, dtype):
+    """qwen2_vl_72b's G 8 at D 128."""
     _flash_xla_matches_jax(case, dtype)
 
 
@@ -140,6 +148,18 @@ def test_paged_attention_ref_matches_jax(case, dtype):
     out = paged_attention_ref(tq, tk, tv, torch.from_numpy(bt),
                               torch.from_numpy(sl))
     assert out.dtype == tq.dtype and out.shape == tq.shape
+    np.testing.assert_allclose(_np(out), _np(ref), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_ref_matches_jax_at_vlm_heads(dtype):
+    """qwen2_vl_72b's G 8 at D 128, page 128 (the card test's case)."""
+    q, kp, vp, bt, sl = pa_split_inputs(PA_SPLIT_CASES[-1])
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, kp, vp))
+    ref = jax_paged_ref(jq, jk, jv, jnp.asarray(bt), jnp.asarray(sl))
+    out = paged_attention_ref(tq, tk, tv, torch.from_numpy(bt),
+                              torch.from_numpy(sl))
     np.testing.assert_allclose(_np(out), _np(ref), atol=TOL[dtype],
                                rtol=TOL[dtype])
 

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (FA_CASES, FA_GEMMA_CASES, FA_MOE_CASES, GLA_CASES, GLA_MMA_CASES,
+from _torch_cases import (FA_CASES, FA_GEMMA_CASES, FA_MOE_CASES, FA_VLM_CASES, GLA_CASES,
+                          GLA_MMA_CASES,
                           PA_CASES, PA_SPLIT_CASES, TOL, fa_inputs, gla_inputs,
                           gla_mma_inputs, pa_inputs, pa_split_inputs)
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
@@ -79,6 +80,15 @@ def test_flash_attention_cuda_matches_plain(case, dtype, cuda_device):
 @pytest.mark.parametrize("case", FA_MOE_CASES)
 def test_flash_attention_cuda_at_moe_heads(case, dtype, cuda_device):
     """granite-MoE's G = 3 at D 64 and DBRX's G = 6 at D 128."""
+    _flash_close(case, dtype, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_VLM_CASES)
+def test_flash_attention_cuda_at_vlm_heads(case, dtype, cuda_device):
+    """qwen2_vl_72b's G 8 at D 128: 64-row query tiles of eight heads over
+    one K/V head, two 64-column TMA boxes."""
     _flash_close(case, dtype, cuda_device)
 
 
@@ -173,7 +183,8 @@ def _split_on(case, device, dtype):
 @pytest.mark.parametrize("case", PA_SPLIT_CASES)
 def test_paged_attention_cuda_split_route_matches_plain(case, dtype,
                                                         cuda_device):
-    """The cluster-split kernel at G 1, 3, 5, 6, 8, 9, D 64 and 128, pages 16
+    """The cluster-split kernel at G 1, 3, 5, 6, 8, 9, D 64 and 128 (G 8 at
+    D 128: qwen2_vl_72b's heads, page 128, over a nine-page table), pages 16
     and 128, with lengths on both sides of the page and split boundaries
     (1, page +- 1, C * page +- 1, max_pages * page) and a table wider than
     the pages used."""

@@ -195,3 +195,78 @@ def test_inits_match_jax_shapes_dtypes_and_axes():
     # fan-in scale: std of wq is d_model**-0.5
     wq = TL.init_attention(g, TL.AttnConfig(512, 8, 8, 64))[0]["wq"].float()
     assert abs(wq.std().item() - 512 ** -0.5) < 2e-3
+
+
+def _stack_of_draws(init_fn, generator, num):
+    """``num`` per-layer draws in a list, then stacked with ``torch.stack``
+    (what ``stack_layer_params`` did before it filled its slots in place)."""
+    inits = [init_fn(generator) for _ in range(num)]
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+
+    def prepend(a):
+        if isinstance(a, dict):
+            return {k: prepend(v) for k, v in a.items()}
+        return ("layers",) + tuple(a)
+
+    return stack([p for p, _ in inits]), prepend(inits[0][1])
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _flat(tree[k], prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def test_stack_layer_params_fills_slots_with_the_same_draws():
+    """A flat tree (an attention block) and a nested one (a block inside a
+    group of stacked blocks): bit-equal to per-layer draws from the same
+    seeded generator stacked with ``torch.stack``, shapes, dtypes and axes."""
+    cfg = TL.AttnConfig(d_model=32, num_heads=4, num_kv_heads=2, head_dim=8,
+                        qkv_bias=True)
+
+    def block(g):
+        return TL.init_attention(g, cfg)
+
+    def group(stack):
+        def init(g):
+            lp, la = stack(block, g, 2)
+            mp, ma = TL.init_mlp(g, 32, 64)
+            return {"local": lp, "global": mp}, {"local": la, "global": ma}
+        return init
+
+    for init, num in ((block, 5), (group(TL.stack_layer_params), 3)):
+        want = _stack_of_draws(init if init is block else group(_stack_of_draws),
+                               torch.Generator().manual_seed(4), num)
+        got = TL.stack_layer_params(init, torch.Generator().manual_seed(4), num)
+        assert got[1] == want[1]
+        assert [p for p, _ in _flat(got[0])] == [p for p, _ in _flat(want[0])]
+        for (_, a), (_, b) in zip(_flat(got[0]), _flat(want[0])):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama_1p1b", "granite_moe_3b_a800m",
+                                  "gemma3_4b", "qwen2_vl_72b", "rwkv6_7b",
+                                  "zamba2_1p2b", "seamless_m4t_medium"])
+def test_every_family_inits_as_with_a_stack_of_draws(arch, monkeypatch):
+    """Each family's reduced init (gemma3_4b with a tail: groups of 2 and
+    one layer left over) gives the same params bit for bit as with the
+    former list-then-``torch.stack`` init."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.registry import build_model
+
+    cfg = reduced_config(get_config(arch))
+    if arch == "gemma3_4b":
+        cfg = dataclasses.replace(cfg, num_layers=5)
+    api = build_model(cfg, "cpu")
+    got, _ = api.init(torch.Generator().manual_seed(1))
+    monkeypatch.setattr(TL, "stack_layer_params", _stack_of_draws)
+    want, _ = api.init(torch.Generator().manual_seed(1))
+    assert [p for p, _ in _flat(got)] == [p for p, _ in _flat(want)]
+    for (path, a), (_, b) in zip(_flat(got), _flat(want)):
+        assert torch.equal(a, b), path

@@ -34,6 +34,8 @@ WARPS = 4                   # warps a block
     (9, 128, 16),            # starcoder2_7b
     (3, 64, 16),             # granite_moe_3b_a800m
     (1, 64, 64),             # zamba2_1p2b's shared attention
+    (6, 128, 128),           # dbrx_132b
+    (8, 128, 128),           # qwen2_vl_72b
 ])
 def test_route_takes_split_for_the_served_configs(dtype, G, D, page):
     assert K.route(dtype, G, D, page, 256) == "split"

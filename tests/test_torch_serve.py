@@ -135,3 +135,38 @@ def test_real_kv_pages_survive_spill_and_offloaded_fetch(small_lm):
         assert torch.equal(back.view_as(pages[l, p]), pages[l, p])
     assert store.server.offload.stats.completed == before + len(cold)
     assert eng.fetches == len(cold)
+
+
+def test_kv_block_larger_than_a_store_page_spans_several():
+    """A 256 KiB block (one qwen2_vl_72b K page: 128 positions x 8 heads x
+    128 x bf16) over a store of 64 KiB pages: written as 4 pages, every one
+    cached for the DPU, fetched back whole and bit-exact through 4
+    offloaded reads.  A store page of the block's own size is larger than
+    one write request of the storage server, which splits it and caches
+    none of it for the DPU: its read goes to the host, whose 256 KiB
+    response never comes back."""
+    rng = np.random.default_rng(3)
+    blocks = [rng.integers(0, 256, 1 << 18, dtype=np.uint8).tobytes()
+              for _ in range(3)]
+    store = PageStore(page_size=(1 << 16) + 8, num_pages=12)
+    eng = PagedKVEngine(store, block_bytes=1 << 18, hbm_blocks=1)
+    assert eng.parts == 4
+    for blk, data in enumerate(blocks):
+        eng.put_block(0, 0, blk, data)
+    before = store.server.offload.stats.completed
+    for blk in (0, 1):
+        assert eng.get_block(0, 0, blk)[:1 << 18] == blocks[blk]
+    assert store.server.offload.stats.completed == before + 8
+    assert eng.fetches == 2 and store.host_served == 0
+    assert eng.get_block(0, 0, 2) is None and eng.hits == 1
+
+    whole = PageStore(page_size=(1 << 18) + 8, num_pages=3)
+    eng = PagedKVEngine(whole, block_bytes=1 << 18, hbm_blocks=1)
+    assert eng.parts == 1
+    for blk, data in enumerate(blocks[:2]):
+        eng.put_block(0, 0, blk, data)
+    before = whole.server.offload.stats.completed
+    with pytest.raises(TimeoutError):
+        eng.get_block(0, 0, 0)
+    assert whole.server.offload.stats.completed == before
+    assert whole.host_served == 1

@@ -5,7 +5,8 @@ also on reduced StarCoder2-7B (LayerNorm, GELU, qkv bias) and Qwen2.5-14B
 that the bias paths carry numbers; and the MoE family, reduced
 granite-MoE-3B and DBRX-132B (2 layers, 8 experts top-2, DBRX with
 LayerNorm biases drawn at random), through the forward and its summed
-load-balance loss, ``loss_fn``, prefill, dense and paged decode.
+load-balance loss, ``loss_fn``, prefill, dense and paged decode.  (The
+vlm family has its own file, test_torch_vlm.py.)
 
 Both sides run JAX-initialised parameters cast to float32, so the only
 differences are summation order and float32 transcendental rounding.
@@ -297,8 +298,14 @@ def test_native_init_matches_jax_shapes_and_dtypes_moe(moe):
     assert tparams["blocks"]["moe"]["wi_gate"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", ["qwen2_vl_72b"])
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "zamba2_1p2b",
+                                  "seamless_m4t_medium"])
+def test_transformer_refuses_families_that_are_not_transformers(arch):
+    """Every transformer family is served (vlm since its port); the dense
+    path still refuses a config of another family."""
     cfg = reduced_config(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg, device=CPU)
+    with pytest.raises(NotImplementedError, match="not a transformer family"):
+        TF.check_supported(cfg)
+    with pytest.raises(NotImplementedError, match="not a transformer family"):
+        TF.init_lm(cfg, torch.Generator().manual_seed(0), CPU)
+    build_model(cfg, device=CPU)   # its own family's registry entry serves it
