@@ -6,7 +6,7 @@
 Phases, each of which exits non-zero on failure:
   1. setup: the card's name and power limit, torch and CUDA versions, TF32
      off for matmuls and cuDNN;
-  2. build the six CUDA libraries from src/repro_torch/csrc (one nvcc
+  2. build the seven CUDA libraries from src/repro_torch/csrc (one nvcc
      each, all started together) into build/torch_kernels/, count the
      tensor-core instructions in the SASS of the bf16 flash library (HGMMA,
      also in its D 320 instance alone) and of the bf16 gla_scan library
@@ -26,12 +26,20 @@ Phases, each of which exits non-zero on failure:
      self-attention, cross-attention at prefill and at decode, Sq 1) and at
      gemma3_4b's (D 320, with its window of 1024 and without, bf16 and
      fp32; SDPA timed with the window as a mask and its backend named),
-     each drawn from a generator of its own; then
+     each drawn from a generator of its own; the flash backward against
+     attention_bwd_ref at TinyLlama's training shape (B 8, S 2048),
+     granite's G 3, qwen2_vl_72b's G 8 at D 128, gemma3_4b's D 320 with
+     its window and without, Sq != Sk at a q_offset and in fp32: max |err|
+     over the largest |gradient| beside the tolerance, two calls
+     bit-equal, kernel, plain and SDPA-backward times and the bound (2.5x
+     the forward's operations); then
      reduced TinyLlama, granite-MoE, DBRX, qwen2_vl_72b (with an embeds
      prefix), RWKV6, Zamba2, SeamlessM4T and gemma3_4b (with a tail)
      models on the card (the kernels) held against the CPU path (their
      plain versions) in fp32, for the MoE family with its load-balance loss
-     (and, once, a MoE layer that drops tokens);
+     (and, once, a MoE layer that drops tokens), and reduced TinyLlama's
+     and granite-MoE's loss_fn and every gradient leaf (the forward and
+     backward kernels) the same way;
   4. the TinyLlama path: full-width TinyLlama (random weights from the
      seed) -- prefill of 8 x 512 tokens through the bf16 flash kernel, dense
      decode, then paged decode through the paged kernel (every launch on
@@ -86,7 +94,19 @@ Phases, each of which exits non-zero on failure:
      logits of a prefill of the longer prompt over the same prefix, the
      same steps after a prefill whose prefixes are rolled one sequence (a
      planted fault that must fail that limit), BatchScheduler captured and
-     eager, and PagedKVEngine over its 256 KiB K pages.
+     eager, and PagedKVEngine over its 256 KiB K pages;
+ 14. TinyLlama training at full width and depth, B 8 x 2048 from the
+     structured token stream: the first step's attention gradients through
+     the kernels held against the plain attention path on the card (three
+     planted faults of the backward read, two of which must fail that
+     limit), one step with microbatch 2 against 1, then 40 Trainer steps
+     (loss, grad norm, lr, ms, 44 forward launches on wgmma and 22
+     backward launches a step; the mean loss of the last 5 must be below
+     that of the first 5), a checkpoint of {params, mu, nu} (11.0 GB)
+     through the DDS server with the Trainer's save_async after step 34,
+     restored bit-exact into a fresh Trainer whose 6 resumed steps give
+     the uninterrupted run's losses bit for bit, the last one profiled
+     (device busy and idle share, largest items).
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
 """
@@ -114,6 +134,7 @@ H100_BF16_FLOPS = 989e12        # dense tensor-core bf16, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # fp32 on CUDA cores, H100 SXM data sheet
 # The port's kernels (src/repro_torch/csrc/*.cu), as the profiler names them.
 PORT_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_kernel",
+                "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
                 "paged_attention_split_kernel", "paged_attention_kernel",
                 "gla_scan_mma_kernel", "gla_scan_kernel")
 # The route every bf16 prefill launch of a kernel must take.
@@ -246,6 +267,44 @@ FLASH_GEMMA = [(8, 1536, 1536, 8, 4, 320, 1024, "bfloat16", "local layers"),
                (8, 1536, 1536, 8, 4, 320, None, "bfloat16", "global layers"),
                (8, 1536, 1536, 8, 4, 320, 1024, "float32", "local layers"),
                (8, 1536, 1536, 8, 4, 320, None, "float32", "global layers")]
+
+
+# B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset, dtype name, use: the
+# flash backward's cases of phase 3: TinyLlama's training call (phase 14),
+# granite-MoE's and qwen2_vl_72b's heads, gemma3_4b's D 320 with its window
+# of 1024 and without, Sq != Sk at a q_offset other than Sk - Sq, and fp32.
+FLASH_BWD = [(8, 2048, 2048, 32, 4, 64, True, None, 0, "bfloat16", "tinyllama_1p1b training"),
+             (8, 2048, 2048, 24, 8, 64, True, None, 0, "bfloat16", "granite_moe_3b_a800m heads"),
+             (2, 2048, 2048, 64, 8, 128, True, None, 0, "bfloat16", "qwen2_vl_72b heads"),
+             (2, 2048, 2048, 8, 4, 320, True, 1024, 0, "bfloat16", "gemma3_4b local layers"),
+             (2, 2048, 2048, 8, 4, 320, True, None, 0, "bfloat16", "gemma3_4b global layers"),
+             (8, 256, 1024, 32, 4, 64, True, None, 700, "bfloat16", "Sq != Sk at q_offset 700"),
+             (8, 512, 512, 32, 4, 64, True, None, 0, "float32", "fp32")]
+# The flash backward against attention_bwd_ref on the same inputs, max |err|
+# over the largest |gradient| (the kernel tests' 2e-2 and 2e-5): bf16 in and
+# out, one rounding of each gradient; fp32 summation order.
+TOL_BWD = {"bfloat16": 2e-2, "float32": 2e-5}
+# Phase 14: TinyLlama at full width and depth, B 8 x S 2048 (its published
+# context), 40 Trainer steps with a checkpoint after 34 (6 resumed).  At
+# the reference's lr (3e-4, 2 warmup steps) 6 steps do not descend: an H100
+# read 10.806 at step 0 and 10.978 at step 5, the early Adam steps raising
+# the random logits' spread, and batches differ by about 0.1; over 40 steps
+# the mean of the first 5 losses fell from 10.847 to 10.645 over the last 5.
+TRAIN = dict(B=8, S=2048, steps=40, ckpt_at=34, mean_of=5)
+# The gradient gate (train_gate): the first step's wq/wk/wv/wo gradients of
+# every layer and the global norm through the kernels against the plain
+# attention path (fp32 inside, bf16 out; the wgmma forward rounds P to bf16
+# before P V), the worst ||g - g_plain|| / ||g_plain||.  An H100 measured
+# 0.014298 at seed 0, and 20.07 with dq left unscaled and 0.8167 with the
+# first key tile's dK/dV zeroed (the planted faults that must fail it);
+# this allows 3.5 times the first.  The last key tile's dK/dV zeroed read
+# 0.014295: its 64 keys are seen by the last 64 queries alone, too little
+# gradient for this gate, so that fault is read and not required to fail.
+TOL_TRAIN_GRADS = 0.05
+# One step with microbatch 2 against 1 (micro_gate): bf16 gradients of the
+# whole batch against the fp32 sum of two half batches' bf16 gradients.
+# An H100 measured 0.0031252 at seed 0; this allows 3.5 times that.
+TOL_TRAIN_MICRO = 0.011
 
 
 def log(msg: str) -> None:
@@ -695,6 +754,135 @@ def check_gla(gen, timer) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 4: the main path at full width.
 # ---------------------------------------------------------------------------
+
+
+def bwd_err(got, ref) -> float:
+    """The flash backward's error: the worst over dq, dk and dv of max
+    |err| over the reference gradient's largest |value| (the gradients'
+    scale varies with the shape and the output gradient)."""
+    return max(max_err(g, r) / max(r.float().abs().max().item(), 1e-30)
+               for g, r in zip(got, ref))
+
+
+def check_flash_bwd(timer, seed) -> dict:
+    """The flash backward kernel against ``attention_bwd_ref`` at
+    ``FLASH_BWD``'s shapes, from a generator of its own: the error beside
+    its tolerance, two calls bit-equal, kernel, plain and SDPA-backward
+    times and the bound.  Returns the rows by use."""
+    from torch.nn.attention import SDPBackend
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for B, Sq, Sk, Hq, Hkv, D, causal, window, q_off, dt, use in FLASH_BWD:
+        dtype = getattr(torch, dt)
+        q = torch.randn(B, Sq, Hq, D, generator=g, device="cuda").to(dtype)
+        k = torch.randn(B, Sk, Hkv, D, generator=g, device="cuda").to(dtype)
+        v = torch.randn(B, Sk, Hkv, D, generator=g, device="cuda").to(dtype)
+        do = torch.randn(B, Sq, Hq, D, generator=g, device="cuda").to(dtype)
+        kw = dict(causal=causal, window=window, q_offset=q_off)
+        with torch.no_grad():
+            o = flash_attention_cuda(q, k, v, **kw)
+        got = flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+        again = flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ref = attention_bwd_ref(q, k, v, o, do, **kw)
+        err = bwd_err(got, ref)
+        abs_err = max(max_err(g, r) for g, r in zip(got, ref))
+        del ref
+        tol = TOL_BWD[dt]
+        ok = same and err <= tol and all(bool(torch.isfinite(t.float()).all())
+                                         for t in got)
+        del got, again
+        flops = 2.5 * 4 * D * B * Hq * flash_pairs(Sq, Sk, causal, window, q_off)
+        nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
+        bnd, by = bound_ms(nbytes, flops,
+                           H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS)
+        row = dict(case=(B, Sq, Sk, Hq, Hkv, D, causal, window, q_off, dt), use=use,
+                   err=err, abs_err=abs_err, ok=ok, route=["simt"],
+                   ms=timer.ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do, **kw),
+                               iters=10),
+                   plain_ms=timer.ms(lambda: attention_bwd_ref(q, k, v, o, do, **kw),
+                                     iters=3, warmup=1),
+                   bound_ms=bnd, bound_by=by, library_ms=None)
+        backend = ""
+        if dtype == torch.bfloat16:  # the yardstick, never used by the port
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                          for t in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            skw = dict(is_causal=causal, enable_gqa=True)
+            if window is not None or q_off != 0:   # the masks as a boolean mask
+                qpos = torch.arange(Sq, device="cuda")[:, None] + q_off
+                kpos = torch.arange(Sk, device="cuda")[None, :]
+                mask = kpos <= qpos
+                if window is not None:
+                    mask &= kpos > qpos - window
+                skw = dict(attn_mask=mask, enable_gqa=True)
+            out = sdpa(qt, kt, vt, **skw)
+            row["library_ms"] = timer.ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True), iters=10)
+            row["sdpa_backend"] = SDPBackend(torch._fused_sdp_choice(
+                qt, kt, vt, skw.get("attn_mask"), 0.0, skw.get("is_causal", False),
+                enable_gqa=True)).name
+            backend = f"; SDPA backward, backend {row['sdpa_backend']}"
+            del qt, kt, vt, out
+        log(f"flash backward {row['case']} ({use}): max|err| {err:.3e} of max "
+            f"|grad| (tol {tol}; {abs_err:.3e} absolute), two calls {'bit-equal' if same else 'DIFFER'}; "
+            f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms library "
+            f"{row['library_ms']} ms bound {bnd:.4f} ms ({by}: 2.5x the "
+            f"forward's operations){backend}")
+        rows[use] = row
+        del q, k, v, o, do
+        torch.cuda.empty_cache()
+    if not all(r["ok"] for r in rows.values()):
+        raise SystemExit("flash backward kernel disagrees with its plain version, "
+                         "gives non-finite gradients or differs between two calls")
+    return rows
+
+
+def check_reduced_grads_against_cpu(arch: str, seed: int) -> None:
+    """A 2-layer reduced ``arch`` in fp32: ``loss_fn``'s value and every
+    gradient leaf on the card (the flash forward, twice a layer under
+    remat, and its backward kernel once a layer) against the CPU path
+    (their plain versions), each leaf's max |err| over its largest
+    |value|."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.tree import leaf_paths
+
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), num_layers=2)
+    params, _ = build_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
+    tok = torch.randint(0, cfg.vocab_size, (2, 2, 24),
+                        generator=torch.Generator().manual_seed(seed))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        fwd0, bwd0 = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
+        loss, g = value_and_grad(build_model(cfg, dev), tree_to(params, dev, torch.float32),
+                                 {"tokens": tok[0].to(dev), "labels": tok[1].to(dev)})
+        out[dev] = (loss.float().cpu(), [t.float().cpu() for _, t in leaf_paths(g)])
+        launches = (flash_attention_cuda.launches - fwd0,
+                    flash_attention_bwd_cuda.launches - bwd0)
+    if launches != (2 * cfg.num_layers, cfg.num_layers):
+        raise SystemExit(f"reduced {arch} gradients on the card launched "
+                         f"{launches} flash forwards and backwards")
+    worst = max([abs(out["cpu"][0] - out["cuda"][0]).item() / abs(out["cpu"][0]).item()]
+                + [max_err(a, b) / max(b.abs().max().item(), 1e-30)
+                   for a, b in zip(out["cuda"][1], out["cpu"][1])])
+    log(f"reduced {arch}, card vs CPU path (fp32, loss_fn and its "
+        f"{len(out['cpu'][1])} gradient leaves; {launches[0]} forward and "
+        f"{launches[1]} backward flash launches): max|err| {worst:.3e} of "
+        f"max |value| (tol {TOL_FP32})")
+    if worst > TOL_FP32:
+        raise SystemExit(f"reduced {arch} gradients on the card disagree with "
+                         "the CPU path")
 
 
 def fill_paged_pool(cache: dict, paged: dict, perm: torch.Tensor) -> None:
@@ -1637,6 +1825,274 @@ def kv_paging(paged: dict, blocks: list[tuple[int, int]], hbm_blocks: int) -> di
             "fetches": eng.fetches, "offloaded": offloaded}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: training and DDS checkpoints.
+# ---------------------------------------------------------------------------
+
+
+def attn_grads(g) -> dict:
+    """The wq/wk/wv/wo gradients of every layer, fp32: {(layer, name): t}."""
+    a = g["blocks"]["attn"]
+    return {(l, n): a[n][l].float() for n in ("wq", "wk", "wv", "wo")
+            for l in range(a["wq"].shape[0])}
+
+
+def grad_reading(g, ref: dict, ref_norm: float) -> float:
+    """The gradient gate's reading: the worst over ``ref``'s leaves of
+    ||g - ref|| / ||ref||, and the global norms' relative difference."""
+    from repro_torch.optim.adamw import global_norm
+
+    got = attn_grads(g)
+    worst = max((got[k] - r).norm().item() / r.norm().item() for k, r in ref.items())
+    return max(worst, abs(global_norm(g).item() - ref_norm) / ref_norm)
+
+
+def bwd_faults() -> dict:
+    """Planted faults of the flash backward: each breaks the (dq, dk, dv)
+    that ``FlashAttentionFn``'s backward gets from the kernel."""
+    def unscaled_dq(dq, dk, dv):
+        return dq * dq.shape[-1] ** 0.5, dk, dv
+
+    def tile_zeroed(keys):
+        def fn(dq, dk, dv):
+            dk, dv = dk.clone(), dv.clone()
+            dk[:, keys], dv[:, keys] = 0, 0
+            return dq, dk, dv
+        return fn
+
+    return {"dq left unscaled": unscaled_dq,
+            "the first key tile's dK/dV zeroed": tile_zeroed(slice(0, 64)),
+            "the last key tile's dK/dV zeroed": tile_zeroed(slice(-64, None))}
+
+
+def train_gate(api, params, batch, flash_cuda, bwd_cuda) -> float:
+    """The first step's gradients through the kernels against the plain
+    attention path (``flash_attention_xla`` under autograd on the card),
+    then with each planted fault of ``bwd_faults``: the kernels must pass
+    ``TOL_TRAIN_GRADS``; the first two faults must fail it, the third is
+    read only.  Returns the kernels' reading."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention_xla
+    from repro_torch.models import layers as TL
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.loop import value_and_grad
+
+    kernel_fa = TL.flash_attention
+
+    def plain(q, k, v, *, causal, window, q_offset, **_):
+        return flash_attention_xla(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+
+    TL.flash_attention = plain
+    try:
+        t0 = time.perf_counter()
+        _, g = value_and_grad(api, params, batch)
+        sync(api.device)
+        plain_s = time.perf_counter() - t0
+    finally:
+        TL.flash_attention = kernel_fa
+    ref, ref_norm = attn_grads(g), global_norm(g).item()
+    del g
+    fwd0, bwd0 = flash_cuda.launches, bwd_cuda.launches
+    _, g = value_and_grad(api, params, batch)
+    launches = (flash_cuda.launches - fwd0, bwd_cuda.launches - bwd0)
+    reading = grad_reading(g, ref, ref_norm)
+    del g
+    L = api.cfg.num_layers
+    log(f"gradient gate: first step's wq/wk/wv/wo gradients of all {L} layers "
+        f"and the global norm ({ref_norm:.4f}), kernels ({launches[0]} forward, "
+        f"{launches[1]} backward launches) against the plain attention path "
+        f"({plain_s:.2f} s): {reading:.4e} (limit {TOL_TRAIN_GRADS})")
+    if launches != (2 * L, L) or reading > TOL_TRAIN_GRADS:
+        raise SystemExit("gradient gate failed")
+    real = FK.FlashAttentionFn.backward
+
+    def planted(fault):
+        def backward(ctx, dout):
+            dq, dk, dv, *rest = real(ctx, dout)
+            return (*fault(dq, dk, dv), *rest)
+        return staticmethod(backward)
+
+    try:
+        for i, (name, fault) in enumerate(bwd_faults().items()):
+            FK.FlashAttentionFn.backward = planted(fault)
+            _, g = value_and_grad(api, params, batch)
+            r = grad_reading(g, ref, ref_norm)
+            del g
+            must = i < 2
+            log(f"gradient gate, planted fault ({name}): {r:.4e} "
+                f"({'must fail' if must else 'read only'}: "
+                f"{'fails' if r > TOL_TRAIN_GRADS else 'passes'} the limit)")
+            if must and r <= TOL_TRAIN_GRADS:
+                raise SystemExit(f"gradient gate passed a planted fault ({name})")
+    finally:
+        FK.FlashAttentionFn.backward = staticmethod(real)
+    return reading
+
+
+def micro_gate(api, params, batch, tcfg) -> float:
+    """One step with ``microbatch=2`` against one with 1 from the same
+    state (step 0, where the warmup's lr is 0, so the moments carry the
+    step): the loss, the grad norm and the worst ||mu2 - mu1|| / ||mu1||
+    over the leaves, held to ``TOL_TRAIN_MICRO``."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.loop import make_train_fn
+    from repro_torch.tree import leaf_paths
+
+    res = {}
+    for n in (1, 2):
+        _, opt, _, m = make_train_fn(api, dataclasses.replace(tcfg, microbatch=n))(
+            params, adamw_init(params), None, batch, 0)
+        res[n] = ({p: t for p, t in leaf_paths(opt.mu)}, float(m["loss"]),
+                  float(m["grad_norm"]))
+        del opt
+    mu = max((res[2][0][p] - t).norm().item() / t.norm().item()
+             for p, t in res[1][0].items())
+    reading = max(mu, abs(res[2][1] - res[1][1]) / res[1][1],
+                  abs(res[2][2] - res[1][2]) / res[1][2])
+    log(f"microbatch 2 against 1, one step: loss {res[1][1]:.6f} vs "
+        f"{res[2][1]:.6f}, grad norm {res[1][2]:.6f} vs {res[2][2]:.6f}, worst "
+        f"relative moment difference {mu:.4e}; reading {reading:.4e} (limit "
+        f"{TOL_TRAIN_MICRO})")
+    if reading > TOL_TRAIN_MICRO:
+        raise SystemExit("microbatch 2 disagrees with microbatch 1")
+    return reading
+
+
+def train_steps(trainer, n, flash_cuda, bwd_cuda, label) -> list[dict]:
+    """``n`` Trainer steps one at a time: each step's record with its wall
+    ms (host clock, synchronised: ``run`` reads the metrics) and its flash
+    launches by route."""
+    out = []
+    for _ in range(n):
+        fwd0, bwd0 = dict(flash_cuda.launches_by_route), bwd_cuda.launches
+        sync(trainer.api.device)
+        t0 = time.perf_counter()
+        rec = dict(trainer.run(1)[-1])
+        rec["ms"] = (time.perf_counter() - t0) * 1e3
+        rec["flash"] = {r: c - fwd0[r] for r, c in flash_cuda.launches_by_route.items()}
+        rec["backward"] = bwd_cuda.launches - bwd0
+        log(f"{label} step {rec['step']}: loss {rec['loss']:.6f} grad norm "
+            f"{rec['grad_norm']:.6f} lr {rec['lr']:.4e} {rec['ms']:.1f} ms; flash "
+            f"forward launches {rec['flash']}, backward {rec['backward']}")
+        out.append(rec)
+    return out
+
+
+def profile_train_step(trainer) -> float:
+    """Device busy time (ms) and the largest device items of one Trainer
+    step, from a torch.profiler trace (device events only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(trainer.api.device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.run(1)
+        sync(trainer.api.device)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    log("train step profile: device busy " f"{busy:.1f} ms in "
+        f"{sum(e.count for e in kernels)} device events; top: "
+        + "; ".join(f"{e.key[:56]} {e.self_device_time_total / 1e3:.1f} ms "
+                    f"x{e.count}" for e in top))
+    return busy
+
+
+def train_path(api, params, gen, seed, flash_cuda, bwd_cuda) -> dict:
+    """Phase 14: the gradient gate and the microbatch gate on the first
+    batch, then ``TRAIN["steps"]`` Trainer steps from ``params`` with a
+    DDS checkpoint of ``{params, mu, nu}`` at ``TRAIN["ckpt_at"]``
+    (the Trainer's ``save_async``), the state there kept on the card; a
+    fresh Trainer (weights from another draw) restored from the checkpoint,
+    its leaves held bit-exact, and resumed: its losses must equal the
+    uninterrupted run's bit for bit.  Returns the backward launches of the
+    uninterrupted run."""
+    from repro_torch.data.pipeline import BatchSpec, TokenPipeline
+    from repro_torch.launch.train import server_for
+    from repro_torch.serve.engine import tree_clone
+    from repro_torch.storage.checkpoint import CheckpointManager
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.tree import leaf_paths
+
+    cfg, B, S = api.cfg, TRAIN["B"], TRAIN["S"]
+    pipe = TokenPipeline(BatchSpec(B, S, cfg.vocab_size), seed, structured=True)
+    tcfg = TrainConfig(warmup_steps=2)
+    dev = api.device
+    batch0 = {k: torch.as_tensor(v).to(dev) for k, v in pipe.batch_at(0).items()}
+    gate = train_gate(api, params, batch0, flash_cuda, bwd_cuda)
+    micro = micro_gate(api, params, batch0, tcfg)
+    del batch0
+    n, at = TRAIN["steps"], TRAIN["ckpt_at"]
+    straight = Trainer(api, tcfg, pipe, ckpt_every=at, params=params)
+    mgr = CheckpointManager(server_for(straight.state(), keep=1), keep=1)
+    straight.ckpt = mgr
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    flash_cuda.launches, bwd_cuda.launches = 0, 0
+    for r in flash_cuda.launches_by_route:
+        flash_cuda.launches_by_route[r] = 0
+    recs = train_steps(straight, at, flash_cuda, bwd_cuda, "uninterrupted")
+    info = mgr._history[-1]
+    saved = tree_clone(straight.state())
+    straight.ckpt = None
+    recs += train_steps(straight, n - at, flash_cuda, bwd_cuda, "uninterrupted")
+    launches = {"flash_attention": dict(flash_cuda.launches_by_route),
+                "flash_attention_bwd": bwd_cuda.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+    L = cfg.num_layers
+    want = [({"wgmma": 2 * L, "simt": 0}, L)] * n
+    losses = [r["loss"] for r in recs]
+    log(f"uninterrupted run, {n} steps of {B} x {S}: losses {losses}; launches "
+        f"{launches}; peak device memory {peak:.3f} GiB (state {at} steps in "
+        "kept on the card for the resume check)")
+    if [(r["flash"], r["backward"]) for r in recs] != want:
+        raise SystemExit(f"train steps' flash launches differ from {want[0]} a step")
+    k = TRAIN["mean_of"]
+    first, last = np.mean(losses[:k]), np.mean(losses[-k:])
+    log(f"loss, mean of the first {k} steps {first:.6f}, of the last {k} {last:.6f}")
+    if not (all(np.isfinite(losses)) and last < first):
+        raise SystemExit(f"training loss not finite or not falling: {losses}")
+    log(f"checkpoint at step {info.step} through the Trainer's save_async: "
+        f"{info.leaves} leaves, {info.nbytes / 1e9:.3f} GB written through the "
+        f"DDS server in {info.wall_s:.2f} s ({info.nbytes / info.wall_s / 1e9:.3f} GB/s); "
+        f"step {at - 1} with the host copy and the wait: {recs[at - 1]['ms']:.1f} ms")
+    del straight
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    resumed = Trainer(api, tcfg, pipe, checkpoint_mgr=mgr,
+                      generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    sync(dev)
+    t0 = time.perf_counter()
+    if not resumed.restore_latest() or resumed.step != at:
+        raise SystemExit("restore_latest found no checkpoint")
+    sync(dev)
+    restore_s = time.perf_counter() - t0
+    exact = all(torch.equal(a, b) for (_, a), (_, b)
+                in zip(leaf_paths(resumed.state()), leaf_paths(saved)))
+    log(f"restored step {at} into a fresh Trainer in {restore_s:.2f} s "
+        f"({info.nbytes / restore_s / 1e9:.3f} GB/s): every leaf "
+        f"{'bit-exact' if exact else 'DIFFERS'}")
+    del saved
+    if not exact:
+        raise SystemExit("the restored train state differs from the saved one")
+    resumed.ckpt = None
+    again = train_steps(resumed, n - at - 1, flash_cuda, bwd_cuda, "resumed")
+    busy = profile_train_step(resumed)
+    again.append(dict(resumed.history[-1]))
+    wall = statistics.median(r["ms"] for r in recs[1:] if r["step"] != at - 1)
+    log(f"train step: wall {wall:.1f} ms (median of the uninterrupted steps "
+        f"but the first and the checkpoint's), device busy {busy:.1f} ms (idle "
+        f"{100 * (1 - busy / wall):.1f}%)")
+    if [r["loss"] for r in again] != losses[at:]:
+        raise SystemExit(f"resumed losses {[r['loss'] for r in again]} differ from "
+                         f"the uninterrupted run's {losses[at:]}")
+    log(f"resumed losses equal the uninterrupted run's bit for bit: {losses[at:]}")
+    return {"launches": launches, "gate": gate, "micro": micro}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1651,7 +2107,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cuda,
+                                                            flash_attention_cuda)
     from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
     from repro_torch.kernels.ssm_scan.kernel import gla_scan_cuda
     from repro_torch.models.registry import build_model
@@ -1674,6 +2131,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     report = _build.build(["flash_attention", "flash_attention_wgmma",
+                           "flash_attention_bwd",
                            "paged_attention", "paged_attention_split",
                            "gla_scan", "gla_scan_mma"])
     log(f"build: {time.perf_counter() - t0:.1f} s wall into {_build.BUILD_DIR} "
@@ -1705,9 +2163,12 @@ def main() -> int:
     flash = check_flash(gen, timer, args.seed)
     paged_row = check_paged(gen, timer, args.seed)
     gla_row = check_gla(gen, timer)
+    flash_bwd = check_flash_bwd(timer, args.seed)
     del timer
     for arch in ("tinyllama_1p1b",) + MOE_ARCHS + ("qwen2_vl_72b",):
         check_reduced_against_cpu(arch, args.seed)
+    for arch in ("tinyllama_1p1b", MOE_ARCHS[0]):
+        check_reduced_grads_against_cpu(arch, args.seed)
     for arch in ("rwkv6_7b", "zamba2_1p2b", "seamless_m4t_medium", "gemma3_4b"):
         check_reduced_api_against_cpu(arch, args.seed)
 
@@ -1848,6 +2309,16 @@ def main() -> int:
     del api, params, vlm
     torch.cuda.empty_cache()
     log(f"qwen2_vl_72b phase {time.perf_counter() - t_phase:.1f} s")
+
+    # 14. training and DDS checkpoints at full width and depth
+    t_phase = time.perf_counter()
+    api = build_model(get_config("tinyllama_1p1b"))
+    params, _ = api.init(gen)
+    train = train_path(api, params, gen, args.seed, flash_attention_cuda,
+                       flash_attention_bwd_cuda)
+    del api, params
+    torch.cuda.empty_cache()
+    log(f"tinyllama_1p1b training phase {time.perf_counter() - t_phase:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     entries = []
@@ -1866,12 +2337,17 @@ def main() -> int:
              "src/repro/kernels/flash_attention/kernel.py:96"),
             ("paged_attention@qwen2_vl_72b", paged_row["qwen2_vl_72b"],
              vlm_counts["paged_attention"], "paged_attention_split",
-             "src/repro/kernels/paged_attention/kernel.py:84")):
+             "src/repro/kernels/paged_attention/kernel.py:84"),
+            # the gradient of the Pallas forward (the JAX package has no
+            # Pallas backward); launches of phase 14's uninterrupted run
+            ("flash_attention_bwd", flash_bwd["tinyllama_1p1b training"],
+             train["launches"]["flash_attention_bwd"], "flash_attention_bwd",
+             "src/repro/kernels/flash_attention/kernel.py:96")):
         entries.append({
             "name": kname, "route": "cuda", "case": str(row["case"]),
             "kernel_route": row["route"][0],
             "source": f"src/repro_torch/csrc/{source}.cu", "replaces": line,
-            "launches": launches, "max_abs_err": row["err"],
+            "launches": launches, "max_abs_err": row.get("abs_err", row["err"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})

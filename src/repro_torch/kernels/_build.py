@@ -100,9 +100,10 @@ def check(name: str, code: int) -> None:
 
 
 def refuse_grad(name: str, *tensors) -> None:
-    """Raise if autograd would record a call: the kernels have no backward
-    yet, and an output filled through ctypes carries no history, so the
-    gradient would be dropped in silence."""
+    """Raise if autograd would record a call of a kernel that has no
+    backward (``gla_scan``, paged attention; flash has one): an output
+    filled through ctypes carries no history, so the gradient would be
+    dropped in silence."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in tensors if t.is_floating_point()):
         raise RuntimeError(

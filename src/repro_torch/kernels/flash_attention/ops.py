@@ -1,8 +1,9 @@
 """Dispatching wrapper for flash attention.
 
 ``flash_attention`` picks the implementation:
-  * ``cuda``        — the hand-written Hopper kernel (kernel.py); the default
-    for CUDA tensors, which never take a plain path;
+  * ``cuda``        — the hand-written Hopper kernel (kernel.py), and its
+    backward kernel when autograd records the call; the default for CUDA
+    tensors, which never take a plain path;
   * ``xla_chunked`` — a plain blockwise online-softmax implementation (a
     loop over KV blocks) with O(S * block) activations; the default for CPU
     tensors.  The name follows the JAX package's portable impl;

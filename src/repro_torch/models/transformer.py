@@ -27,7 +27,7 @@ steps take none.
 
 Entry points:
   init_lm(cfg, generator, device)             -> (params, logical-axes tree)
-  lm_forward(params, cfg, tokens, embeds)     -> (logits, aux)   (forward only)
+  lm_forward(params, cfg, tokens, embeds, remat) -> (logits, aux)
   lm_init_cache(cfg, batch, cache_len, ...)   -> cache dict
   lm_prefill(params, cfg, tokens, ..., embeds) -> (logits, cache)
   lm_decode_step(params, cfg, cache, kv_len, token) -> (logits, cache)
@@ -237,21 +237,35 @@ def _positions(cfg: ModelConfig, B: int, S: int, device, offset=0):
 
 
 # ---------------------------------------------------------------------------
-# Forward (no training step yet: the attention kernel has no backward).
+# Training forward.
 # ---------------------------------------------------------------------------
 
 
-def lm_forward(params, cfg: ModelConfig, tokens, embeds=None):
+def lm_forward(params, cfg: ModelConfig, tokens, embeds=None,
+               remat: bool = True):
     """tokens: (B, S) int; ``embeds``: an optional (B, V, d_model) prefix
     that replaces the first V token embeddings.  Returns (logits,
-    aux_loss)."""
+    aux_loss).
+
+    With ``remat`` each layer body goes through ``layers.maybe_remat`` at
+    ``cfg.remat``: the backward recomputes the layer from its input, so
+    the forward keeps one (B, S, d_model) input a layer, as the
+    reference's rematerialized scans do (the reference's unit is a scan
+    step: a whole local_global group; here every layer, gemma3's local,
+    global and tail layers alike, which gives the same gradients)."""
     check_supported(cfg)
     B, S = tokens.shape
     x = _embed(params, tokens, embeds)
     pos = _positions(cfg, B, S, tokens.device)
     aux = torch.zeros((), device=x.device)
     for blk, _, _, window, theta in _layers(params, cfg):
-        x, _, a = block_fwd(blk, x, cfg, pos, window=window, theta=theta)
+        def body(x, blk, window=window, theta=theta):
+            x, _, a = block_fwd(blk, x, cfg, pos, window=window, theta=theta)
+            return x, a
+
+        if remat:
+            body = L.maybe_remat(body, cfg.remat)
+        x, a = body(x, blk)
         aux = aux + a
     return _final(params, cfg, x), aux
 

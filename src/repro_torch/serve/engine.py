@@ -27,6 +27,8 @@ import torch
 from repro_torch.core.dds_server import DDSClient, encode_batch
 from repro_torch.models.registry import ModelAPI
 from repro_torch.storage.pagestore import PageStore
+from repro_torch.tree import leaves as tree_leaves
+from repro_torch.tree import tree_clone
 
 # ---------------------------------------------------------------------------
 # DDS-backed paged KV offloading.
@@ -145,24 +147,6 @@ class PagedKVEngine:
 # ---------------------------------------------------------------------------
 # The captured decode step.
 # ---------------------------------------------------------------------------
-
-
-def tree_leaves(tree) -> list:
-    """The leaves of a cache (dict, tuple or tensor), in order."""
-    if isinstance(tree, dict):
-        return [x for k in tree for x in tree_leaves(tree[k])]
-    if isinstance(tree, (tuple, list)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
-
-
-def tree_clone(tree):
-    """A copy of a cache (dict, tuple or tensor) with every tensor cloned."""
-    if isinstance(tree, dict):
-        return {k: tree_clone(v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_clone(v) for v in tree)
-    return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
 def _signature(tree) -> tuple:

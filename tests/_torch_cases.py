@@ -1,6 +1,7 @@
 """Kernel case tables and seeded numpy inputs shared by the port's kernel
-tests: ``test_torch_kernels.py`` and ``test_torch_ssm_scan.py`` (plain
-versions against the JAX package, on the CPU) and
+tests: ``test_torch_kernels.py``, ``test_torch_flash_bwd.py`` and
+``test_torch_ssm_scan.py`` (plain versions against the JAX package, on the
+CPU) and
 ``test_torch_kernels_gpu.py`` (CUDA kernels against the plain versions, on
 a card).  Nothing here imports JAX, so the card's
 machine, which has none, can run the GPU tests."""
@@ -54,6 +55,23 @@ FA_VLM_CASES = [
     (1, 256, 256, 16, 2, 128, True, None),
     (2, 130, 130, 8, 1, 128, True, None),
     (1, 64, 320, 16, 2, 128, True, None),
+]
+# B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset: the flash backward
+# (attention_bwd_ref against jax.vjp of the JAX chunked path in fp32 on the
+# CPU; the backward kernel against attention_bwd_ref on a card).  G 8
+# (TinyLlama's ratio), 3 (granite-MoE) and 1, causal and not, a window, an
+# explicit q_offset with Sq != Sk, ragged S off the 64-row tiles, and D 32,
+# 64, 128 and 320; every row sees at least one key (a row that sees none
+# gets zero gradients here, where the JAX path's uniform softmax does not:
+# the GPU tests check those rows against the plain version alone).
+FA_BWD_CASES = [
+    (2, 128, 128, 8, 1, 64, True, None, None),
+    (1, 96, 96, 6, 2, 64, True, None, None),
+    (2, 40, 136, 4, 4, 32, False, None, None),
+    (1, 128, 128, 8, 1, 128, True, 48, None),
+    (1, 64, 192, 4, 2, 64, True, None, 100),
+    (1, 80, 80, 4, 2, 320, True, 32, None),
+    (1, 48, 48, 2, 1, 320, False, None, None),
 ]
 # B, Hq, Hkv, D, pool_pages, page, max_pages  (PA_CASES of tests/test_kernels.py)
 PA_CASES = [
@@ -117,6 +135,17 @@ def fa_inputs(case, seed=0):
     return (rng.standard_normal((B, Sq, Hq, D), np.float32),
             rng.standard_normal((B, Sk, Hkv, D), np.float32),
             rng.standard_normal((B, Sk, Hkv, D), np.float32))
+
+
+def fa_bwd_inputs(case, seed=6):
+    """q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D) and the output gradient
+    do (B, Sq, Hq, D), float32."""
+    B, Sq, Sk, Hq, Hkv, D = case[:6]
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, Hq, D), np.float32),
+            rng.standard_normal((B, Sk, Hkv, D), np.float32),
+            rng.standard_normal((B, Sk, Hkv, D), np.float32),
+            rng.standard_normal((B, Sq, Hq, D), np.float32))
 
 
 def pa_inputs(case, seed=2):

@@ -49,21 +49,29 @@ def test_route_counters_cover_every_route():
 
 
 def test_autograd_guard_raises_before_the_device_check(monkeypatch):
-    """The kernels have no backward: a call autograd would record raises
-    before the device check, so a CPU tensor shows it; under no_grad or
-    inference_mode the same call passes the guard and meets the device
-    check.  No library is built or loaded either way."""
+    """Flash has a backward now: a call that autograd would record goes
+    through ``FlashAttentionFn`` and meets the same device check as any
+    other call (a CPU tensor shows it), as it does under no_grad or
+    inference_mode.  No library is built or loaded either way, and no
+    launch is counted.  (gla_scan and paged attention keep their guard:
+    ``test_torch_gla_route.py``, ``test_torch_paged_route.py``.)"""
     def no_build(*args, **kwargs):
         raise AssertionError("a kernel library was requested")
 
     monkeypatch.setattr(_build, "function", no_build)
     monkeypatch.setattr(_build, "build", no_build)
+    launches = (K.flash_attention_cuda.launches,
+                K.flash_attention_bwd_cuda.launches)
     q = torch.zeros(1, 8, 2, 64, requires_grad=True)
     k = torch.zeros(1, 8, 2, 64)
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(ValueError, match="CUDA device"):
         K.flash_attention_cuda(q, k, k)
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(ValueError, match="CUDA device"):
         K.flash_attention_cuda(k, k, k.clone().requires_grad_())
     for context in (torch.no_grad, torch.inference_mode):
         with context(), pytest.raises(ValueError, match="CUDA device"):
             K.flash_attention_cuda(q, k, k)
+    with pytest.raises(ValueError, match="CUDA device"):
+        K.flash_attention_bwd_cuda(k, k, k, k, k)
+    assert (K.flash_attention_cuda.launches,
+            K.flash_attention_bwd_cuda.launches) == launches

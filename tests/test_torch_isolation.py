@@ -1,4 +1,5 @@
-"""The port stands alone: it loads neither ``jax`` nor ``repro``, its copies
+"""The port stands alone: it loads neither ``jax`` nor ``repro`` (nor
+``ml_dtypes``, which the card's machine lacks), its copies
 of the storage substrate and configs cannot drift from the originals, and
 its entry points never run on the CPU unless asked to."""
 
@@ -21,6 +22,7 @@ COPIED = ([f"core/{m}.py" for m in (
     "__init__", "wire", "lifecycle", "qos", "vector", "ring", "cache_table",
     "file_service", "host_lib", "traffic", "offload", "client", "dds_server")]
     + [f"storage/{m}.py" for m in ("__init__", "blockdev", "pagestore")]
+    + [f"data/{m}.py" for m in ("__init__", "pipeline")]
     + sorted(f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob("*.py")))
 
 
@@ -35,8 +37,8 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
+        "             in ('jax', 'repro', 'ml_dtypes'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -46,7 +48,7 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
 
 
 def test_no_file_imports_jax_or_repro():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\.|\s|$)", re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
     offenders = [str(f.relative_to(ROOT)) for f in files
@@ -66,7 +68,7 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.device import resolve_device
     from repro_torch.interop import to_torch
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import hybrid as HY
     from repro_torch.models import ssm_stack as SS
     from repro_torch.models import transformer as TF
@@ -89,6 +91,7 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         lambda: HY.hybrid_state(zamba, 1, 8),
         lambda: to_torch({"w": __import__("numpy").zeros(2)}),
         lambda: serve.main([]),
+        lambda: train.main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):

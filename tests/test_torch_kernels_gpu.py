@@ -7,19 +7,23 @@ so they run on the card's machine:
 Inputs and tolerances are those of ``test_torch_kernels.py`` and
 ``test_torch_ssm_scan.py`` (``_torch_cases.py``): 2e-5 for fp32 and 2e-2
 for bf16 on attention; four times that on the GLA scan's output and 1e-3
-on its final state, as the JAX package's GLA tests.
+on its final state, as the JAX package's GLA tests.  The flash backward's
+gradients vary in scale, so its tolerances (the same 2e-5 and 2e-2) are
+relative to the largest |gradient| of each output.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (FA_CASES, FA_GEMMA_CASES, FA_MOE_CASES, FA_VLM_CASES, GLA_CASES,
-                          GLA_MMA_CASES,
-                          PA_CASES, PA_SPLIT_CASES, TOL, fa_inputs, gla_inputs,
-                          gla_mma_inputs, pa_inputs, pa_split_inputs)
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from _torch_cases import (FA_BWD_CASES, FA_CASES, FA_GEMMA_CASES, FA_MOE_CASES,
+                          FA_VLM_CASES, GLA_CASES, GLA_MMA_CASES,
+                          PA_CASES, PA_SPLIT_CASES, TOL, fa_bwd_inputs, fa_inputs,
+                          gla_inputs, gla_mma_inputs, pa_inputs, pa_split_inputs)
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cuda,
+                                                        flash_attention_cuda)
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
 from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.ssm_scan import gla_scan
@@ -133,6 +137,97 @@ def test_flash_attention_cuda_edge_shapes(case, dtype, cuda_device):
     cross-attention without a mask, D 128 (two TMA column boxes) and a
     window at D 32 (the 64-byte swizzle)."""
     _flash_close(case[:-1], dtype, cuda_device, q_offset=case[-1])
+
+
+# ---------------------------------------------------------------------------
+# Flash backward: the kernel against attention_bwd_ref on the same inputs,
+# max |err| of each gradient over its largest |value|.
+# ---------------------------------------------------------------------------
+
+
+def _bwd_inputs(case, device, dtype, seed=6):
+    q, k, v, do = (_on(a, device, dtype) for a in fa_bwd_inputs(case, seed))
+    B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset = case
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o = attention_ref(q, k, v, **kw)
+    return q, k, v, o, do, kw
+
+
+def _grads_close(got, ref, tol):
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        assert bool(torch.isfinite(g.float()).all()), name
+        scale = max(r.float().abs().max().item(), 1e-30)
+        err = (g.float() - r.float()).abs().max().item() / scale
+        assert err <= tol, f"{name}: {err:.3e} of max |grad| > {tol}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_BWD_CASES)
+def test_flash_attention_bwd_cuda_matches_plain(case, dtype, cuda_device):
+    q, k, v, o, do, kw = _bwd_inputs(case, cuda_device, dtype)
+    before = flash_attention_bwd_cuda.launches
+    got = flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_cuda.launches == before + 1
+    _grads_close(got, attention_bwd_ref(q, k, v, o, do, **kw), TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_cuda_is_deterministic(dtype, cuda_device):
+    """No atomics and a fixed order: two calls give the same bits."""
+    q, k, v, o, do, kw = _bwd_inputs(FA_BWD_CASES[1], cuda_device, dtype)
+    a = flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    b = flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset: rows that see no key
+# (every row: a window behind a large q_offset; some rows: the same window
+# nearer, or causal rows before the first key at a negative q_offset).
+FA_BWD_MASKED_CASES = [
+    (1, 64, 64, 4, 2, 64, True, 16, 100),
+    (1, 64, 64, 4, 2, 64, True, 16, 40),
+    (2, 64, 32, 8, 1, 64, True, None, -16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_BWD_MASKED_CASES)
+def test_flash_attention_bwd_cuda_masked_rows_give_zero(case, dtype, cuda_device):
+    """A row whose keys are all masked gets zero gradients, not NaN."""
+    q, k, v, o, do, kw = _bwd_inputs(case, cuda_device, dtype)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    _grads_close(got, attention_bwd_ref(q, k, v, o, do, **kw), TOL[dtype])
+    Sq, Sk, window, q_offset = case[1], case[2], case[7], case[8]
+    qpos = torch.arange(Sq, device=cuda_device) + q_offset
+    sees = (qpos >= 0) & (qpos - (window or Sk + abs(q_offset)) < Sk - 1)
+    assert not bool(sees.all())
+    assert bool((got[0][:, ~sees] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_autograd_goes_through_the_kernels(dtype, cuda_device):
+    """The dispatcher's cuda path under autograd: one forward and one
+    backward launch, gradients as attention_bwd_ref's; under no_grad the
+    forward launch alone."""
+    case = FA_BWD_CASES[0]
+    q, k, v, o, do, kw = _bwd_inputs(case, cuda_device, dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fwd, bwd = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
+    out = flash_attention(*leaves, **kw)
+    out.backward(do)
+    assert (flash_attention_cuda.launches - fwd,
+            flash_attention_bwd_cuda.launches - bwd) == (1, 1)
+    ref = attention_bwd_ref(q, k, v, out.detach(), do, **kw)
+    _grads_close([t.grad for t in leaves], ref, TOL[dtype])
+    with torch.no_grad():
+        flash_attention(*leaves, **kw)
+    assert flash_attention_bwd_cuda.launches - bwd == 1
 
 
 @pytest.mark.gpu

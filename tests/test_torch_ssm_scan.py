@@ -137,3 +137,24 @@ def test_dispatcher_on_cpu_tensors_takes_the_plain_versions():
         gla_scan(q, k, v, w, chunk=32, impl="cuda")
     with pytest.raises(ValueError, match="unknown impl"):
         gla_scan(q, k, v, w, impl="pallas")
+
+
+@pytest.mark.parametrize("case", GLA_CASES[:2])
+def test_gla_xla_gradients_match_jax(case):
+    """Port of tests/test_kernels.py::test_gla_xla_gradients_match_naive:
+    the gradients of sum(o^2) through the chunked path, by torch autograd,
+    against ``jax.grad`` of the JAX chunked path and against autograd of
+    the port's plain recurrence, at that test's tolerance (5e-3)."""
+    import jax
+
+    _, _, _, _, _, chunk = case
+    arrays = gla_inputs(case)
+    j_grads = jax.grad(
+        lambda *a: jnp.sum(jnp.square(jax_gla_xla(*a, chunk=chunk)[0])),
+        argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in arrays))
+    for fn in (lambda *a: gla_scan_xla(*a, chunk=chunk), gla_scan_ref):
+        leaves = [torch.from_numpy(a).requires_grad_() for a in arrays]
+        fn(*leaves)[0].square().sum().backward()
+        for t, j in zip(leaves, j_grads):
+            np.testing.assert_allclose(_np(t.grad), np.asarray(j), atol=5e-3,
+                                       rtol=5e-3)
