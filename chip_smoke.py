@@ -6,12 +6,13 @@
 Phases, each of which exits non-zero on failure:
   1. setup: the card's name and power limit, torch and CUDA versions, TF32
      off for matmuls and cuDNN;
-  2. build the seven CUDA libraries from src/repro_torch/csrc (one nvcc
+  2. build the eight CUDA libraries from src/repro_torch/csrc (one nvcc
      each, all started together) into build/torch_kernels/, count the
      tensor-core instructions in the SASS of the bf16 flash library (HGMMA,
-     also in its D 320 instance alone) and of the bf16 gla_scan library
-     (HMMA), and print ptxas's registers and spills of both flash
-     libraries' D 320 instances;
+     also in its D 320 instance alone), of the tensor-core flash backward's
+     D 64 and D 128 instances (HGMMA, with ptxas's registers and spills of
+     each) and of the bf16 gla_scan library (HMMA), and print ptxas's
+     registers and spills of both flash libraries' D 320 instances;
   3. each kernel against its plain PyTorch version at the main paths'
      shapes (flash and paged also at granite-MoE's, DBRX's and
      qwen2_vl_72b's heads, the last from generators of their own):
@@ -29,10 +30,13 @@ Phases, each of which exits non-zero on failure:
      each drawn from a generator of its own; the flash backward against
      attention_bwd_ref at TinyLlama's training shape (B 8, S 2048),
      granite's G 3, qwen2_vl_72b's G 8 at D 128, gemma3_4b's D 320 with
-     its window and without, Sq != Sk at a q_offset and in fp32: max |err|
-     over the largest |gradient| beside the tolerance, two calls
+     its window and without, Sq != Sk at a q_offset and in fp32, each on
+     the route the backward's rule names (bf16 at D 64 and 128 on the
+     tensor cores with the forward's lse, D 320 and fp32 on CUDA cores):
+     max |err| over the largest |gradient| beside the tolerance, two calls
      bit-equal, kernel, plain and SDPA-backward times and the bound (2.5x
-     the forward's operations); then
+     the forward's operations), and on the tensor-core rows the CUDA-core
+     kernel's time and error beside them; then
      reduced TinyLlama, granite-MoE, DBRX, qwen2_vl_72b (with an embeds
      prefix), RWKV6, Zamba2, SeamlessM4T and gemma3_4b (with a tail)
      models on the card (the kernels) held against the CPU path (their
@@ -101,12 +105,13 @@ Phases, each of which exits non-zero on failure:
      planted faults of the backward read, two of which must fail that
      limit), one step with microbatch 2 against 1, then 40 Trainer steps
      (loss, grad norm, lr, ms, 44 forward launches on wgmma and 22
-     backward launches a step; the mean loss of the last 5 must be below
+     backward launches on wgmma a step; the mean loss of the last 5 must be below
      that of the first 5), a checkpoint of {params, mu, nu} (11.0 GB)
      through the DDS server with the Trainer's save_async after step 34,
      restored bit-exact into a fresh Trainer whose 6 resumed steps give
      the uninterrupted run's losses bit for bit, the last one profiled
-     (device busy and idle share, largest items).
+     (device busy and idle share, largest items, the port's kernels and
+     the flash backward's share).
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
 """
@@ -134,7 +139,8 @@ H100_BF16_FLOPS = 989e12        # dense tensor-core bf16, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # fp32 on CUDA cores, H100 SXM data sheet
 # The port's kernels (src/repro_torch/csrc/*.cu), as the profiler names them.
 PORT_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_kernel",
-                "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
+                "flash_bwd_delta_kernel", "flash_bwd_wgmma_dkdv_kernel",
+                "flash_bwd_wgmma_dq_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
                 "paged_attention_split_kernel", "paged_attention_kernel",
                 "gla_scan_mma_kernel", "gla_scan_kernel")
 # The route every bf16 prefill launch of a kernel must take.
@@ -506,6 +512,25 @@ def ptxas_lines(log: str, marker: str) -> list[str]:
     return out
 
 
+def check_bwd_sass(report: dict) -> None:
+    """HGMMA in the SASS of the tensor-core flash backward's D 64 and D 128
+    instances, logged with ptxas's registers and spills of each (from
+    ``report``, ``_build.build``'s, where this run built the library);
+    raises at 0."""
+    from repro_torch.kernels import _build
+
+    lib = "flash_attention_bwd_wgmma"
+    for marker, dim in (("Li64E", 64), ("Li128E", 128)):
+        count = sass_count(_build.lib_path(lib), "HGMMA", marker)
+        lines = (ptxas_lines(report[lib]["ptxas"], marker) if lib in report
+                 else ["built before this run: no ptxas output"])
+        log(f"SASS of {lib}, D {dim} instances: {count} HGMMA instructions; "
+            "ptxas -v: " + "; ".join(lines))
+        if count == 0:
+            raise SystemExit(f"the tensor-core flash backward's D {dim} instances "
+                             "have no tensor-core (HGMMA) instruction")
+
+
 def timed_prefill(api, params, tokens, S, cache_len, kernels, want,
                   extra=None):
     """Warm up (the first call of each matmul shape pays one-time library
@@ -764,15 +789,39 @@ def bwd_err(got, ref) -> float:
                for g, r in zip(got, ref))
 
 
+def flash_bwd_simt(q, k, v, o, do, *, causal, window, q_offset):
+    """The CUDA-core flash backward (the simt route, the only one before the
+    wgmma route) launched through its C entry point on a call the rule
+    sends to the wgmma route, for timing beside it in the same run."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    lib, symbol, argtypes = K._BWD_LIBS["simt"]
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    code = _build.function(lib, symbol, argtypes)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        int(q.dtype == torch.bfloat16), B, Sq, Sk, Hq, Hkv, D, int(causal),
+        window or 0, int(q_offset), D ** -0.5, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code)
+    return dq, dk, dv
+
+
 def check_flash_bwd(timer, seed) -> dict:
     """The flash backward kernel against ``attention_bwd_ref`` at
-    ``FLASH_BWD``'s shapes, from a generator of its own: the error beside
-    its tolerance, two calls bit-equal, kernel, plain and SDPA-backward
-    times and the bound.  Returns the rows by use."""
+    ``FLASH_BWD``'s shapes, from a generator of its own: the route the rule
+    names asserted, the error beside its tolerance, two calls bit-equal,
+    kernel, plain and SDPA-backward times and the bound; on the wgmma route
+    the lse comes from the forward, as in training, and the CUDA-core
+    kernel is timed beside it.  Returns the rows by use."""
     from torch.nn.attention import SDPBackend
 
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_bwd_cuda, flash_attention_cuda)
+        bwd_route, flash_attention_bwd_cuda, flash_attention_fwd_cuda)
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -785,28 +834,38 @@ def check_flash_bwd(timer, seed) -> dict:
         v = torch.randn(B, Sk, Hkv, D, generator=g, device="cuda").to(dtype)
         do = torch.randn(B, Sq, Hq, D, generator=g, device="cuda").to(dtype)
         kw = dict(causal=causal, window=window, q_offset=q_off)
+        route = bwd_route(dtype, D)
         with torch.no_grad():
-            o = flash_attention_cuda(q, k, v, **kw)
-        got = flash_attention_bwd_cuda(q, k, v, o, do, **kw)
-        again = flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+            o, lse = flash_attention_fwd_cuda(q, k, v, with_lse=route == "wgmma", **kw)
+        bkw = dict(kw, lse=lse) if lse is not None else kw
+        before = dict(flash_attention_bwd_cuda.launches_by_route)
+        got = flash_attention_bwd_cuda(q, k, v, o, do, **bkw)
+        again = flash_attention_bwd_cuda(q, k, v, o, do, **bkw)
         torch.cuda.synchronize()
+        routed = {r: c - before[r] for r, c in
+                  flash_attention_bwd_cuda.launches_by_route.items()} == {
+                      r: 2 * (r == route) for r in before}
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         ref = attention_bwd_ref(q, k, v, o, do, **kw)
         err = bwd_err(got, ref)
         abs_err = max(max_err(g, r) for g, r in zip(got, ref))
+        simt_err = (bwd_err(flash_bwd_simt(q, k, v, o, do, **kw), ref)
+                    if route == "wgmma" else None)
         del ref
         tol = TOL_BWD[dt]
-        ok = same and err <= tol and all(bool(torch.isfinite(t.float()).all())
-                                         for t in got)
+        ok = routed and same and err <= tol and all(
+            bool(torch.isfinite(t.float()).all()) for t in got)
         del got, again
         flops = 2.5 * 4 * D * B * Hq * flash_pairs(Sq, Sk, causal, window, q_off)
         nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
         bnd, by = bound_ms(nbytes, flops,
                            H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS)
         row = dict(case=(B, Sq, Sk, Hq, Hkv, D, causal, window, q_off, dt), use=use,
-                   err=err, abs_err=abs_err, ok=ok, route=["simt"],
-                   ms=timer.ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do, **kw),
+                   err=err, abs_err=abs_err, ok=ok, route=[route],
+                   ms=timer.ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do, **bkw),
                                iters=10),
+                   simt_ms=(timer.ms(lambda: flash_bwd_simt(q, k, v, o, do, **kw), iters=10)
+                            if route == "wgmma" else None),
                    plain_ms=timer.ms(lambda: attention_bwd_ref(q, k, v, o, do, **kw),
                                      iters=3, warmup=1),
                    bound_ms=bnd, bound_by=by, library_ms=None)
@@ -831,17 +890,21 @@ def check_flash_bwd(timer, seed) -> dict:
                 enable_gqa=True)).name
             backend = f"; SDPA backward, backend {row['sdpa_backend']}"
             del qt, kt, vt, out
-        log(f"flash backward {row['case']} ({use}): max|err| {err:.3e} of max "
+        simt = ("" if simt_err is None else
+                f"; the CUDA-core kernel {row['simt_ms']:.4f} ms, max|err| {simt_err:.3e}")
+        log(f"flash backward {row['case']} ({use}): route {route}"
+            f"{'' if routed else ' NOT TAKEN'}; max|err| {err:.3e} of max "
             f"|grad| (tol {tol}; {abs_err:.3e} absolute), two calls {'bit-equal' if same else 'DIFFER'}; "
             f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms library "
             f"{row['library_ms']} ms bound {bnd:.4f} ms ({by}: 2.5x the "
-            f"forward's operations){backend}")
+            f"forward's operations){backend}{simt}")
         rows[use] = row
-        del q, k, v, o, do
+        del q, k, v, o, do, lse
         torch.cuda.empty_cache()
     if not all(r["ok"] for r in rows.values()):
         raise SystemExit("flash backward kernel disagrees with its plain version, "
-                         "gives non-finite gradients or differs between two calls")
+                         "gives non-finite gradients, differs between two calls "
+                         "or took another route than the rule's")
     return rows
 
 
@@ -1893,15 +1956,15 @@ def train_gate(api, params, batch, flash_cuda, bwd_cuda) -> float:
         TL.flash_attention = kernel_fa
     ref, ref_norm = attn_grads(g), global_norm(g).item()
     del g
-    fwd0, bwd0 = flash_cuda.launches, bwd_cuda.launches
+    fwd0, bwd0 = flash_cuda.launches, bwd_cuda.launches_by_route["wgmma"]
     _, g = value_and_grad(api, params, batch)
-    launches = (flash_cuda.launches - fwd0, bwd_cuda.launches - bwd0)
+    launches = (flash_cuda.launches - fwd0, bwd_cuda.launches_by_route["wgmma"] - bwd0)
     reading = grad_reading(g, ref, ref_norm)
     del g
     L = api.cfg.num_layers
     log(f"gradient gate: first step's wq/wk/wv/wo gradients of all {L} layers "
         f"and the global norm ({ref_norm:.4f}), kernels ({launches[0]} forward, "
-        f"{launches[1]} backward launches) against the plain attention path "
+        f"{launches[1]} wgmma backward launches) against the plain attention path "
         f"({plain_s:.2f} s): {reading:.4e} (limit {TOL_TRAIN_GRADS})")
     if launches != (2 * L, L) or reading > TOL_TRAIN_GRADS:
         raise SystemExit("gradient gate failed")
@@ -1965,13 +2028,13 @@ def train_steps(trainer, n, flash_cuda, bwd_cuda, label) -> list[dict]:
     launches by route."""
     out = []
     for _ in range(n):
-        fwd0, bwd0 = dict(flash_cuda.launches_by_route), bwd_cuda.launches
+        fwd0, bwd0 = dict(flash_cuda.launches_by_route), dict(bwd_cuda.launches_by_route)
         sync(trainer.api.device)
         t0 = time.perf_counter()
         rec = dict(trainer.run(1)[-1])
         rec["ms"] = (time.perf_counter() - t0) * 1e3
         rec["flash"] = {r: c - fwd0[r] for r, c in flash_cuda.launches_by_route.items()}
-        rec["backward"] = bwd_cuda.launches - bwd0
+        rec["backward"] = {r: c - bwd0[r] for r, c in bwd_cuda.launches_by_route.items()}
         log(f"{label} step {rec['step']}: loss {rec['loss']:.6f} grad norm "
             f"{rec['grad_norm']:.6f} lr {rec['lr']:.4e} {rec['ms']:.1f} ms; flash "
             f"forward launches {rec['flash']}, backward {rec['backward']}")
@@ -1980,8 +2043,9 @@ def train_steps(trainer, n, flash_cuda, bwd_cuda, label) -> list[dict]:
 
 
 def profile_train_step(trainer) -> float:
-    """Device busy time (ms) and the largest device items of one Trainer
-    step, from a torch.profiler trace (device events only)."""
+    """Device busy time (ms), the largest device items and the port's
+    kernels of one Trainer step, with the flash backward's share of the
+    busy time, from a torch.profiler trace (device events only)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1992,10 +2056,17 @@ def profile_train_step(trainer) -> float:
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    ours = {name: (sum(e.self_device_time_total for e in es) / 1e3,
+                   sum(e.count for e in es)) for name in PORT_KERNELS
+            if (es := [e for e in kernels if re.search(rf"::{name}[<(]", e.key)])}
+    backward = sum(ms for name, (ms, _) in ours.items() if name.startswith("flash_bwd"))
     log("train step profile: device busy " f"{busy:.1f} ms in "
         f"{sum(e.count for e in kernels)} device events; top: "
         + "; ".join(f"{e.key[:56]} {e.self_device_time_total / 1e3:.1f} ms "
-                    f"x{e.count}" for e in top))
+                    f"x{e.count}" for e in top)
+        + "; port kernels: " + "; ".join(f"{name} {ms:.1f} ms x{count}"
+                                        for name, (ms, count) in ours.items())
+        + f"; flash backward {backward:.1f} ms ({100 * backward / busy:.1f}% of busy)")
     return busy
 
 
@@ -2031,24 +2102,26 @@ def train_path(api, params, gen, seed, flash_cuda, bwd_cuda) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     flash_cuda.launches, bwd_cuda.launches = 0, 0
-    for r in flash_cuda.launches_by_route:
-        flash_cuda.launches_by_route[r] = 0
+    for fn in (flash_cuda, bwd_cuda):
+        for r in fn.launches_by_route:
+            fn.launches_by_route[r] = 0
     recs = train_steps(straight, at, flash_cuda, bwd_cuda, "uninterrupted")
     info = mgr._history[-1]
     saved = tree_clone(straight.state())
     straight.ckpt = None
     recs += train_steps(straight, n - at, flash_cuda, bwd_cuda, "uninterrupted")
     launches = {"flash_attention": dict(flash_cuda.launches_by_route),
-                "flash_attention_bwd": bwd_cuda.launches}
+                "flash_attention_bwd": dict(bwd_cuda.launches_by_route)}
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
     L = cfg.num_layers
-    want = [({"wgmma": 2 * L, "simt": 0}, L)] * n
+    want = [({"wgmma": 2 * L, "simt": 0}, {"wgmma": L, "simt": 0})] * n
     losses = [r["loss"] for r in recs]
     log(f"uninterrupted run, {n} steps of {B} x {S}: losses {losses}; launches "
         f"{launches}; peak device memory {peak:.3f} GiB (state {at} steps in "
         "kept on the card for the resume check)")
     if [(r["flash"], r["backward"]) for r in recs] != want:
-        raise SystemExit(f"train steps' flash launches differ from {want[0]} a step")
+        raise SystemExit(f"train steps' flash launches (forward, backward by route) "
+                         f"differ from {want[0]} a step")
     k = TRAIN["mean_of"]
     first, last = np.mean(losses[:k]), np.mean(losses[-k:])
     log(f"loss, mean of the first {k} steps {first:.6f}, of the last {k} {last:.6f}")
@@ -2131,7 +2204,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     report = _build.build(["flash_attention", "flash_attention_wgmma",
-                           "flash_attention_bwd",
+                           "flash_attention_bwd", "flash_attention_bwd_wgmma",
                            "paged_attention", "paged_attention_split",
                            "gla_scan", "gla_scan_mma"])
     log(f"build: {time.perf_counter() - t0:.1f} s wall into {_build.BUILD_DIR} "
@@ -2152,6 +2225,7 @@ def main() -> int:
         lines = (ptxas_lines(report[lib]["ptxas"], "Li320E") if lib in report
                  else ["built before this run: no ptxas output"])
         log(f"ptxas -v, D 320 instance of {lib}: " + "; ".join(lines))
+    check_bwd_sass(report)
     hmma = sass_count(_build.lib_path("gla_scan_mma"), "HMMA")
     log(f"SASS of gla_scan_mma: {hmma} HMMA instructions")
     if hmma == 0:
@@ -2339,9 +2413,10 @@ def main() -> int:
              vlm_counts["paged_attention"], "paged_attention_split",
              "src/repro/kernels/paged_attention/kernel.py:84"),
             # the gradient of the Pallas forward (the JAX package has no
-            # Pallas backward); launches of phase 14's uninterrupted run
+            # Pallas backward); wgmma launches of phase 14's uninterrupted run
             ("flash_attention_bwd", flash_bwd["tinyllama_1p1b training"],
-             train["launches"]["flash_attention_bwd"], "flash_attention_bwd",
+             train["launches"]["flash_attention_bwd"]["wgmma"],
+             "flash_attention_bwd_wgmma",
              "src/repro/kernels/flash_attention/kernel.py:96")):
         entries.append({
             "name": kname, "route": "cuda", "case": str(row["case"]),

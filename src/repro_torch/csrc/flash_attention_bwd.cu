@@ -1,5 +1,8 @@
 // Backward GQA flash attention for Hopper (sm_90a): fp32 arithmetic on CUDA
-// cores, bf16 or fp32 inputs and outputs.
+// cores, bf16 or fp32 inputs and outputs.  The wrapper's rule
+// (kernels/flash_attention/kernel.py::bwd_route) sends it fp32 calls and
+// bf16 at D 320; bf16 at D 32, 64 and 128 takes the tensor cores
+// (flash_attention_bwd_wgmma.cu).
 //
 // The gradient of flash_attention_pallas / _fa_kernel
 // (src/repro/kernels/flash_attention/kernel.py).  The JAX package has no
@@ -39,8 +42,7 @@
 // operations, and by shared-memory loads before the FMA pipes (16 loads
 // for 32 FMAs a thread in the inner loops).  What it keeps out of device
 // memory: P and dS never leave shared memory; each tile of K, V, Q and dO
-// is read from device memory once per block that uses it.  Tensor cores
-// (mma/wgmma on bf16 P and dS) are later work.
+// is read from device memory once per block that uses it.
 //
 // Threads: 256 a block as a 16 x 16 grid (ty, tx).  In a product with a
 // BQ x BK output (S, dP) a thread holds rows ty + 16 i and columns

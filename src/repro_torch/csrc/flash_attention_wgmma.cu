@@ -50,35 +50,26 @@
 // tiles are launched longest first (the causal frontier makes the last
 // tile of a sequence the longest).
 //
+// For the backward (flash_attention_bwd_wgmma.cu) a launch may also write
+// each row's log-sum-exp, fp32 in natural-log units, from the running max
+// and the reduced sum the epilogue already holds; the pointer is null on
+// every other launch (prefill, decode and their CUDA graphs), and the
+// output is the same either way.
+//
 // Layouts (all contiguous, 16-byte aligned): q (B, Sq, Hq, D), k/v
-// (B, Sk, Hkv, D), out (B, Sq, Hq, D), Hq = Hkv * G.
+// (B, Sk, Hkv, D), out (B, Sq, Hq, D), Hq = Hkv * G; lse (B, Hq, Sq).
 
-#include <dlfcn.h>
-
-#include "common.cuh"
-#include "hopper.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
 using namespace repro::sm90;
+using namespace repro::flash;
 using repro::kNegInf;
-using bf16 = __nv_bfloat16;
 
-constexpr int kBM = 64;                   // query rows per block: one wgmma M tile
-constexpr int kBN = 64;                   // keys per K/V tile
 constexpr int kStages = 2;                // K/V tiles in flight
 constexpr int kConsumers = 128;           // one warpgroup computes
 constexpr int kThreads = kConsumers + 32; // and one warp loads
-
-template <int D>
-struct Tile {
-  static constexpr int kCols = D < 64 ? D : 64;   // columns of a TMA box and a swizzled row
-  static constexpr int kRowBytes = 2 * kCols;     // 64 or 128
-  static constexpr int kBlocks = D / kCols;       // column blocks: 2 at D 128
-  static constexpr int kAtom = 8 * kRowBytes;     // one swizzle atom: 8 rows
-  static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 1 : 2;  // descriptor code
-  static constexpr int kOStride = D + 8;          // padded output row: no bank conflicts
-};
 
 // Every tile is a multiple of 1024 bytes, so each starts on a swizzle atom.
 // The epilogue stages the output tile (kBM rows of kOStride) in k.
@@ -92,31 +83,6 @@ struct __align__(1024) Smem {
   uint64_t q_full;
 };
 
-// Descriptor of columns [16 kk, 16 kk + 16) of a K-major tile of `rows` rows
-// (Q or K): the start moves within the swizzled row, or to the next column
-// block at D 128 and 320; the stride byte offset steps over 8-row atoms.
-template <int D>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t base, int rows, int kk) {
-  using T = Tile<D>;
-  const int col = 16 * kk;
-  return smem_desc(base + (col / T::kCols) * rows * T::kRowBytes + (col % T::kCols) * 2,
-                   16, T::kAtom, T::kSwizzle);
-}
-
-// Descriptor of keys [16 kk, 16 kk + 16) of a V tile read MN-major (D
-// contiguous): the leading byte offset steps between 64-column blocks.
-template <int D>
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t base, int kk) {
-  using T = Tile<D>;
-  return smem_desc(base + 16 * kk * T::kRowBytes, kBN * T::kRowBytes, T::kAtom,
-                   T::kSwizzle);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
 // O += P V over keys [16 kk, 16 kk + 16): one wgmma of N = D up to D 128;
 // at D 320 one m64n64 per 64-column block of V, block c into o[32 c, 32 c + 32)
 // (so o[e] is column 8 (e >> 2) + 2 (lane % 4) + (e & 1) at every D).
@@ -124,28 +90,14 @@ template <int D>
 __device__ __forceinline__ void pv_wgmma(float (&o)[D / 2], const uint32_t (&a)[4],
                                          uint32_t v_base, int kk) {
   if constexpr (D <= 128) {
-    wgmma_rs<D>(o, a, mnmajor_desc<D>(v_base, kk));
+    wgmma_rs<D>(o, a, mnmajor_desc<D>(v_base, kBN, kk));
   } else {
     using T = Tile<D>;
 #pragma unroll
     for (int c = 0; c < T::kBlocks; ++c)
       wgmma_rs_m64n64k16(*reinterpret_cast<float(*)[32]>(o + 32 * c), a,
-                         mnmajor_desc<D>(v_base + c * kBN * T::kRowBytes, kk));
+                         mnmajor_desc<D>(v_base + c * kBN * T::kRowBytes, kBN, kk));
   }
-}
-
-// Key tiles any row of the query tile at q0 can see: [lo, lo + n * kBN).
-struct KeyRange {
-  int lo, n;
-};
-
-__device__ __forceinline__ KeyRange key_range(int q0, int Sq, int Sk, int causal,
-                                              int window, int q_offset) {
-  const int q_first = q_offset + q0;
-  const int q_last = q_offset + min(q0 + kBM, Sq) - 1;
-  const int hi = causal ? min(Sk, q_last + 1) : Sk;
-  const int lo = window > 0 ? max(0, q_first - window + 1) / kBN * kBN : 0;
-  return {lo, hi > lo ? (hi - lo + kBN - 1) / kBN : 0};
 }
 
 template <int D>
@@ -153,8 +105,9 @@ __global__ void __launch_bounds__(kThreads, D == 320 ? 1 : D == 128 ? 2 : 3)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
                              const __grid_constant__ CUtensorMap v_map,
-                             bf16* __restrict__ out, int Sq, int Sk, int Hq, int G,
-                             int causal, int window, int q_offset, float scale_log2) {
+                             bf16* __restrict__ out, float* __restrict__ lse, int Sq,
+                             int Sk, int Hq, int G, int causal, int window, int q_offset,
+                             float scale_log2) {
   using T = Tile<D>;
   extern __shared__ uint8_t smem_raw[];
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>(
@@ -304,6 +257,18 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / (l[r] + 1e-30f);
   }
+  // The row's log-sum-exp in natural-log units, for the backward
+  // (FlashAttentionFn.forward's launches alone pass lse); kNegInf for a
+  // row that saw no key tile.
+  if (lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + row0 + 8 * r;
+      if (row < Sq)
+        lse[(static_cast<size_t>(b) * Hq + h) * Sq + row] =
+            l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f : kNegInf;
+    }
+  }
 #pragma unroll
   for (int e = 0; e < D / 2; e += 2) {
     const int r = (e >> 1) & 1;
@@ -323,45 +288,6 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, which the CUDA runtime has already
-// loaded; this library itself links only against the runtime.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"))
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A (B, S, H, D) bf16 tensor as a 4-D TMA map, innermost first (D, H, S, B),
-// whose box is `rows` positions of one head by 64 columns (all D at D 32).
-// The maps are encoded on the host at each launch and passed by value as
-// __grid_constant__ parameters, so a CUDA graph that captures a launch
-// keeps the maps, and with them the addresses of q, k and v at the
-// capture.  That is right only because a captured decode step is replayed
-// on the tensors it was captured on (serve/engine.py::DecodeGraph refuses
-// any other); a replay on new tensors would read the old ones.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int rows) {
-  const int cols = D < 64 ? D : 64;
-  const cuuint64_t s = S > 0 ? S : 1;  // no load is issued when S is 0
-  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), s, cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(D) * 2, cuuint64_t(H) * D * 2, s * H * D * 2};
-  const cuuint32_t box[4] = {cuuint32_t(cols), 1, cuuint32_t(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                        dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 constexpr int smem_bytes() {
   return sizeof(Smem<D>) + 1024;  // + alignment slack
@@ -377,17 +303,17 @@ cudaError_t allow_smem() {
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                   int Sk, int Hq, int Hkv, int causal, int window, int q_offset,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
+                   int B, int Sq, int Sk, int Hq, int Hkv, int causal, int window,
+                   int q_offset, float scale, cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map;
   if (!make_map(&q_map, q, B, Sq, Hq, D, kBM) || !make_map(&k_map, k, B, Sk, Hkv, D, kBN) ||
       !make_map(&v_map, v, B, Sk, Hkv, D, kBN))
     return cudaErrorInvalidValue;
   const dim3 grid(B * Hq, (Sq + kBM - 1) / kBM);
   flash_attention_wgmma_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
-      q_map, k_map, v_map, static_cast<bf16*>(out), Sq, Sk, Hq, Hq / Hkv, causal, window,
-      q_offset, scale * 1.4426950408889634f);
+      q_map, k_map, v_map, static_cast<bf16*>(out), lse, Sq, Sk, Hq, Hq / Hkv, causal,
+      window, q_offset, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -404,28 +330,34 @@ extern "C" int flash_attention_wgmma_setup() {
   return static_cast<int>(err);
 }
 
-// bf16 q, k, v, out; window <= 0 means no window.  Returns a cudaError_t.
-// Head dims 32, 64, 128 and 320 are compiled; flash_attention_wgmma_setup must
+// bf16 q, k, v, out; lse, when not null, the fp32 (B, Hq, Sq) log-sum-exp
+// of each row; window <= 0 means no window.  Returns a cudaError_t.  Head
+// dims 32, 64, 128 and 320 are compiled; flash_attention_wgmma_setup must
 // have run on the current device.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
-                                            void* out, int B, int Sq, int Sk, int Hq,
-                                            int Hkv, int D, int causal, int window,
+                                            void* out, void* lse, int B, int Sq, int Sk,
+                                            int Hq, int Hkv, int D, int causal, int window,
                                             int q_offset, float scale, void* stream) {
   if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   cudaError_t err;
   switch (D) {
     case 32:
-      err = launch<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, s);
+      err = launch<32>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, window, q_offset,
+                        scale, s);
       break;
     case 64:
-      err = launch<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, s);
+      err = launch<64>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, window, q_offset,
+                        scale, s);
       break;
     case 128:
-      err = launch<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, s);
+      err = launch<128>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, window, q_offset,
+                        scale, s);
       break;
     case 320:
-      err = launch<320>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale, s);
+      err = launch<320>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, window, q_offset,
+                        scale, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -100,7 +100,6 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
-
 // Keeps the compiler from moving reads or writes of a register that an
 // asynchronous wgmma owns across the fence, commit and wait around it.
 __device__ __forceinline__ void reg_fence(float& r) {
@@ -127,6 +126,34 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 32, fp32) = a (64 x 16) * b (16 x 32) [+ d]: a and b in shared
+// memory, both K-major; accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t desc_a,
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// S = A B^T for an output of N = 32 or 64 columns, both operands K-major.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  static_assert(N == 32 || N == 64, "wgmma_ss: N is 32 or 64");
+  if constexpr (N == 32) {
+    wgmma_ss_m64n32k16(d, desc_a, desc_b, accumulate);
+  } else {
+    wgmma_ss_m64n64k16(d, desc_a, desc_b, accumulate);
+  }
 }
 
 // d (64 x 32, fp32) += a (64 x 16, bf16 pairs in registers) * b (16 x 32):

@@ -20,12 +20,22 @@ so a CUDA graph can capture it: the wgmma kernel's shared-memory limit is
 raised once per device by ``flash_attention_wgmma_setup`` at the first
 call.
 
-The backward (``csrc/flash_attention_bwd.cu``, ``flash_attention_bwd_cuda``)
-takes both dtypes on CUDA cores in fp32 and recomputes the softmax
-statistics, so the forward kernels stay as they are.  A call that autograd
-records goes through ``FlashAttentionFn``, whose forward is the forward
-launch and whose backward is that kernel; any other call is the forward
-launch alone (prefill, decode and their CUDA graphs).
+The backward (``flash_attention_bwd_cuda``) has two routes too, by the
+rule ``bwd_route``:
+
+  * ``wgmma`` (``csrc/flash_attention_bwd_wgmma.cu``) takes bfloat16 at D
+    32, 64 and 128: every product on the tensor cores, a dK/dV kernel with
+    the keys as wgmma's rows and a dQ kernel, P and dS rounded to bf16 in
+    registers, the log-sum-exp of each row from the forward;
+  * ``simt`` (``csrc/flash_attention_bwd.cu``) takes bfloat16 at D 320 and
+    every float32 call: fp32 FMAs on CUDA cores, the softmax statistics
+    recomputed.
+
+Neither uses atomics, so two calls give the same bits.  A call that
+autograd records goes through ``FlashAttentionFn``, whose forward is the
+forward launch (writing the log-sum-exp on the wgmma route) and whose
+backward is the backward launch; any other call is the forward launch alone
+(prefill, decode and their CUDA graphs), with no log-sum-exp written.
 """
 
 from __future__ import annotations
@@ -36,36 +46,51 @@ import torch
 
 from repro_torch.kernels import _build
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-             + [ctypes.c_float, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
-                 + [ctypes.c_float, ctypes.c_void_p])
-_BWD_LIB = ("flash_attention_bwd", "flash_attention_bwd_launch")
-HEAD_DIMS = (32, 64, 128, 320)   # the head dims both sources compile
-# route -> (library, C entry point)
-_LIBS = {"wgmma": ("flash_attention_wgmma", "flash_attention_wgmma_launch"),
-         "simt": ("flash_attention", "flash_attention_launch")}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+HEAD_DIMS = (32, 64, 128, 320)   # the head dims both forward sources compile
+WGMMA_BWD_HEAD_DIMS = (32, 64, 128)   # the tensor-core backward's
+# route -> (library, C entry point, argument types)
+_LIBS = {"wgmma": ("flash_attention_wgmma", "flash_attention_wgmma_launch",
+                   [_P] * 5 + [_I] * 9 + [_F, _P]),
+         "simt": ("flash_attention", "flash_attention_launch",
+                  [_P] * 4 + [_I] * 9 + [_F, _P])}
+_BWD_LIBS = {"wgmma": ("flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma_launch",
+                       [_P] * 10 + [_I] * 9 + [_F, _P]),
+             "simt": ("flash_attention_bwd", "flash_attention_bwd_launch",
+                      [_P] * 10 + [_I] * 10 + [_F, _P])}
 _wgmma_ready: set[int] = set()   # devices whose shared-memory limit is set
 
 
-def route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel a call takes: ``"wgmma"`` for bfloat16, ``"simt"`` for
-    float32.  Raises TypeError for another dtype and ValueError for a head
-    dim outside ``HEAD_DIMS``."""
+def _check_kind(name: str, dtype: torch.dtype, head_dim: int) -> None:
     if head_dim not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {head_dim} not in {HEAD_DIMS}")
-    if dtype == torch.bfloat16:
-        return "wgmma"
-    if dtype == torch.float32:
-        return "simt"
-    raise TypeError(f"flash_attention_cuda: dtype {dtype} not in (float32, bfloat16)")
+        raise ValueError(f"{name}: head dim {head_dim} not in {HEAD_DIMS}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {dtype} not in (float32, bfloat16)")
 
 
-def _check(name, q, k, v, window) -> str:
-    """The route of a call; raises on what the kernels do not take."""
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The forward kernel a call takes: ``"wgmma"`` for bfloat16,
+    ``"simt"`` for float32.  Raises TypeError for another dtype and
+    ValueError for a head dim outside ``HEAD_DIMS``."""
+    _check_kind("flash_attention_cuda", dtype, head_dim)
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernel a call takes: ``"wgmma"`` for bfloat16 at a head
+    dim in ``WGMMA_BWD_HEAD_DIMS``, ``"simt"`` for bfloat16 at D 320 and for
+    float32.  Raises as ``route`` does."""
+    _check_kind("flash_attention_bwd_cuda", dtype, head_dim)
+    return ("wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_BWD_HEAD_DIMS
+            else "simt")
+
+
+def _check(name, q, k, v, window, rule) -> str:
+    """The route of a call by ``rule``; raises on what the kernels do not
+    take."""
     B, Sq, Hq, D = q.shape
     Bk, Sk, Hkv, Dk = k.shape
-    kind = route(q.dtype, D)
+    kind = rule(q.dtype, D)
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
         raise ValueError(f"{name}: q, k, v must be on one CUDA device")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -79,22 +104,26 @@ def _check(name, q, k, v, window) -> str:
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Flash attention with a gradient: the forward launch, saving q, k, v
-    and the output, and ``flash_attention_bwd_cuda`` as its backward."""
+    """Flash attention with a gradient: the forward launch, saving q, k, v,
+    the output and (on the tensor-core backward's route) each row's
+    log-sum-exp, and ``flash_attention_bwd_cuda`` as its backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, scale):
-        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset, scale=scale)
-        ctx.save_for_backward(q, k, v, out)
+        with_lse = (q.dtype == torch.bfloat16
+                    and q.shape[-1] in WGMMA_BWD_HEAD_DIMS)
+        out, lse = flash_attention_fwd_cuda(q, k, v, causal=causal, window=window,
+                                            q_offset=q_offset, scale=scale,
+                                            with_lse=with_lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = dict(causal=causal, window=window, q_offset=q_offset,
                       scale=scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, **ctx.kw)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, lse=lse, **ctx.kw)
         return dq, dk, dv, None, None, None, None
 
 
@@ -109,22 +138,42 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, causal, window, q_offset, scale)
+    return flash_attention_fwd_cuda(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset, scale=scale)[0]
+
+
+def flash_attention_fwd_cuda(q, k, v, *, causal: bool = True,
+                             window: int | None = None,
+                             q_offset: int | None = None,
+                             scale: float | None = None,
+                             with_lse: bool = False):
+    """The forward launch: (out, lse).  ``lse`` is None, or with
+    ``with_lse`` (the wgmma route alone) each row's log-sum-exp of the
+    scaled, masked logits, fp32 (B, Hq, Sq) in natural-log units, -1e30
+    for a row that sees no key; the output is the same either way."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    kind = _check("flash_attention_cuda", q, k, v, window)
+    kind = _check("flash_attention_cuda", q, k, v, window, route)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_cuda: q, k, v must be contiguous")
     if kind == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention_cuda: TMA needs 16-byte aligned q, k, v")
+    if with_lse and kind != "wgmma":
+        raise ValueError("flash_attention_cuda: only the wgmma route writes lse")
     if scale is None:
         scale = D ** -0.5
     if q_offset is None:
         q_offset = Sk - Sq
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
-    lib, symbol = _LIBS[kind]
-    fn = _build.function(lib, symbol, _ARGTYPES)
+        return out, lse
+    lib, symbol, argtypes = _LIBS[kind]
+    fn = _build.function(lib, symbol, argtypes)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if kind == "wgmma":
+        ptrs.append(lse.data_ptr() if with_lse else None)
     with torch.cuda.device(q.device):
         if kind == "wgmma" and q.device.index not in _wgmma_ready:
             # once per device, at the first call, never inside a capture
@@ -132,41 +181,52 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
             setup = _build.function(lib, "flash_attention_wgmma_setup", [])
             _build.check(lib, setup())
             _wgmma_ready.add(q.device.index)
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  B, Sq, Sk, Hq, Hkv, D, int(causal), window or 0,
+        code = fn(*ptrs, B, Sq, Sk, Hq, Hkv, D, int(causal), window or 0,
                   int(q_offset), float(scale),
                   torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code)
     flash_attention_cuda.launches += 1
     flash_attention_cuda.launches_by_route[kind] += 1
-    return out
+    return out, lse
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_by_route = {"wgmma": 0, "simt": 0}
 
 
-def flash_attention_bwd_cuda(q, k, v, o, do, *, causal: bool = True,
+def flash_attention_bwd_cuda(q, k, v, o, do, *, lse=None, causal: bool = True,
                              window: int | None = None,
                              q_offset: int | None = None,
                              scale: float | None = None):
-    """(dq, dk, dv) of flash attention on the card, in the inputs' dtype.
+    """(dq, dk, dv) of flash attention on the card, in the inputs' dtype,
+    on the route ``bwd_route`` names.
 
     q, o, do: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D); ``o`` is the forward's
     output and ``do`` its gradient (made contiguous here: it arrives as a
-    view of the attention output's reshape).  Same masks and defaults as
-    ``flash_attention_cuda``; what ``ref.attention_bwd_ref`` computes.
+    view of the attention output's reshape).  ``lse``, on the wgmma route,
+    is the forward's log-sum-exp (``flash_attention_fwd_cuda(...,
+    with_lse=True)``); without it this call launches that forward to get
+    it.  The simt route computes its own and takes none.  Same masks and
+    defaults as ``flash_attention_cuda``; what ``ref.attention_bwd_ref``
+    computes.
     """
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    _check("flash_attention_bwd_cuda", q, k, v, window)
+    name = "flash_attention_bwd_cuda"
+    kind = _check(name, q, k, v, window, bwd_route)
     if o.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"flash_attention_bwd_cuda: o {tuple(o.shape)} and do "
+        raise ValueError(f"{name}: o {tuple(o.shape)} and do "
                          f"{tuple(do.shape)} must have q's shape {tuple(q.shape)}")
     if any(t.dtype != q.dtype or t.device != q.device for t in (o, do)):
-        raise TypeError("flash_attention_bwd_cuda: o and do must have q's dtype "
-                        "and device")
+        raise TypeError(f"{name}: o and do must have q's dtype and device")
+    if lse is not None and (kind != "wgmma" or lse.shape != (B, Hq, Sq)
+                            or lse.dtype != torch.float32 or lse.device != q.device
+                            or not lse.is_contiguous()):
+        raise ValueError(f"{name}: lse must be the wgmma route's contiguous fp32 "
+                         f"(B, Hq, Sq) = {(B, Hq, Sq)} on q's device")
     q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    if kind == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError(f"{name}: TMA needs 16-byte aligned q, k, v, o, do")
     if scale is None:
         scale = D ** -0.5
     if q_offset is None:
@@ -174,20 +234,30 @@ def flash_attention_bwd_cuda(q, k, v, o, do, *, causal: bool = True,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    lib, symbol = _BWD_LIB
-    fn = _build.function(lib, symbol, _BWD_ARGTYPES)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    if kind == "simt":
+        lse = torch.empty_like(delta)   # scratch: the kernel writes it
+        flags = [int(q.dtype == torch.bfloat16)]
+    else:
+        if lse is None:
+            _, lse = flash_attention_fwd_cuda(q, k, v, causal=causal, window=window,
+                                              q_offset=q_offset, scale=scale,
+                                              with_lse=True)
+        flags = []
+    lib, symbol, argtypes = _BWD_LIBS[kind]
+    fn = _build.function(lib, symbol, argtypes)
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  lse.data_ptr(), delta.data_ptr(), int(q.dtype == torch.bfloat16),
+                  lse.data_ptr(), delta.data_ptr(), *flags,
                   B, Sq, Sk, Hq, Hkv, D, int(causal), window or 0,
                   int(q_offset), float(scale),
                   torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code)
     flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.launches_by_route[kind] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.launches_by_route = {"wgmma": 0, "simt": 0}

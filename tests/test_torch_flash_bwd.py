@@ -110,3 +110,78 @@ def test_flash_attention_xla_gradients_match_naive(case):
         grads.append([t.grad for t in leaves])
     for a, b in zip(*grads):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-4, rtol=2e-4)
+
+
+def wgmma_bwd_emulation(q, k, v, o, do, *, causal, window, q_offset,
+                        scale=None):
+    """(dq, dk, dv) with the rounding points of the tensor-core backward,
+    ``src/repro_torch/csrc/flash_attention_bwd_wgmma.cu``, in fp32 torch:
+
+      * q, k, v, o, do are bf16; S = q k^T and dP = dO V^T accumulate in
+        fp32 (``wgmma_ss``, :251-258 in the dK/dV kernel, :443-450 in dQ);
+      * lse is the forward's fp32 log-sum-exp of the scaled, masked logits
+        (``flash_attention_wgmma.cu``:263-271), read in log2 units
+        (:203, :418); delta = rowsum(dO o O) in fp32 (:124-144);
+      * P = exp2(S scale log2(e) - lse log2(e)), 0 where masked (:278-285,
+        :467-473); dS = P (dP - delta) from the fp32 P (:287, :474);
+      * P and dS rounded to bf16 (:286-287, :474) before dV += P^T dO,
+        dK += dS^T Q and dQ += dS K, which accumulate in fp32 (:302-312,
+        :482-487), dK and dV over the G heads of a K/V head;
+      * dK and dQ scaled in fp32, then each gradient rounded once to bf16
+        (:335-338, :504-505).
+    """
+    def bf16(t):
+        return t.to(torch.bfloat16).float()
+
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    if q_offset is None:
+        q_offset = Sk - Sq
+    qf, kf, vf, of, dof = (bf16(t) for t in (q, k, v, o, do))
+    kf, vf = (t.repeat_interleave(G, dim=2) for t in (kf, vf))
+    qpos = torch.arange(Sq)[:, None] + q_offset
+    kpos = torch.arange(Sk)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    lse = torch.where(mask, s * scale, torch.full_like(s, -torch.inf)).logsumexp(-1)
+    log2e = 1.0 / np.log(2.0)
+    p = torch.where(mask, torch.exp2(s * (scale * log2e) - (lse * log2e)[..., None]),
+                    torch.zeros_like(s))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * of).sum(-1).transpose(1, 2)[..., None]
+    ds = bf16(p * (dp - delta))
+    p = bf16(p)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof).reshape(B, Sk, Hkv, G, D).sum(3)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf).reshape(B, Sk, Hkv, G, D).sum(3)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    return bf16(dq * scale), bf16(dk * scale), bf16(dv)
+
+
+WGMMA_BWD_TOL = 2e-2   # the bf16 kernel tolerance, of max |grad|
+
+
+@pytest.mark.parametrize("case", [c for c in FA_BWD_CASES if c[5] <= 128])
+def test_wgmma_bwd_emulation_matches_jax_vjp(case):
+    """The tensor-core backward's arithmetic (``wgmma_bwd_emulation``)
+    against ``jax.vjp`` of the JAX package's chunked path on the same
+    bf16-rounded inputs (fp32 inside): within 2e-2 of each gradient's
+    largest |value|, over ``FA_BWD_CASES`` at the head dims that route
+    takes (D 32, 64, 128)."""
+    def bf16(a):
+        return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+    q, k, v, do = (bf16(a) for a in fa_bwd_inputs(case))
+    o, jgrads = _jax_vjp(case, q, k, v, do)
+    _, _, _, _, _, _, causal, window, q_offset = case
+    ours = wgmma_bwd_emulation(*(torch.from_numpy(a) for a in (q, k, v, o, do)),
+                               causal=causal, window=window, q_offset=q_offset)
+    for name, g, j in zip(("dq", "dk", "dv"), ours, jgrads):
+        assert g.shape == j.shape, name
+        assert _rel_err(g.numpy(), j) <= WGMMA_BWD_TOL, name

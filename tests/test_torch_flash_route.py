@@ -1,8 +1,9 @@
-"""The flash-attention wrapper's route rule, on the CPU: bfloat16 calls take
+"""The flash-attention wrapper's route rules, on the CPU: bfloat16 calls take
 the tensor-core kernel (``wgmma``), float32 calls the CUDA-core kernel
 (``simt``), and anything else raises before a kernel library is built or
-loaded.  The kernels themselves are held against their plain versions on a
-card by ``test_torch_kernels_gpu.py``."""
+loaded; the backward's rule (``bwd_route``) is the same but for bfloat16 at
+D 320, which stays on the CUDA cores.  The kernels themselves are held
+against their plain versions on a card by ``test_torch_kernels_gpu.py``."""
 
 import pytest
 import torch
@@ -75,3 +76,50 @@ def test_autograd_guard_raises_before_the_device_check(monkeypatch):
         K.flash_attention_bwd_cuda(k, k, k, k, k)
     assert (K.flash_attention_cuda.launches,
             K.flash_attention_bwd_cuda.launches) == launches
+
+
+@pytest.mark.parametrize("dtype,head_dim,route", [
+    (torch.bfloat16, 32, "wgmma"),
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 320, "simt"),
+    *[(torch.float32, d, "simt") for d in K.HEAD_DIMS],
+])
+def test_bwd_route_by_dtype_and_head_dim(dtype, head_dim, route):
+    """The backward takes the tensor cores for bfloat16 at D 32, 64 and 128;
+    D 320 (its dK and dV would need 320 fp32 registers a thread) and every
+    float32 call stay on the CUDA-core kernel."""
+    assert K.bwd_route(dtype, head_dim) == route
+
+
+@pytest.mark.parametrize("dtype,head_dim,error", [
+    (torch.float16, 64, TypeError),
+    (torch.float64, 128, TypeError),
+    (torch.bfloat16, 96, ValueError),
+    (torch.float32, 16, ValueError),
+])
+def test_unsupported_bwd_call_raises_before_any_library(dtype, head_dim, error,
+                                                        monkeypatch):
+    def no_build(*args, **kwargs):
+        raise AssertionError("a kernel library was requested")
+
+    monkeypatch.setattr(_build, "function", no_build)
+    monkeypatch.setattr(_build, "build", no_build)
+    libs = dict(_build._libs)
+    bwd = K.flash_attention_bwd_cuda
+    launches = (bwd.launches, dict(bwd.launches_by_route),
+                K.flash_attention_cuda.launches)
+    q = torch.zeros(1, 8, 2, head_dim, dtype=dtype)
+    with pytest.raises(error, match="flash_attention_bwd_cuda"):
+        bwd(q, q, q, q, q)
+    with pytest.raises(error, match="flash_attention_bwd_cuda"):
+        K.bwd_route(dtype, head_dim)
+    assert _build._libs == libs
+    assert (bwd.launches, bwd.launches_by_route,
+            K.flash_attention_cuda.launches) == launches
+
+
+def test_bwd_route_counters_cover_every_route():
+    assert (set(K.flash_attention_bwd_cuda.launches_by_route) == set(K._BWD_LIBS)
+            == {"wgmma", "simt"})
+

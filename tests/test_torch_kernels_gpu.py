@@ -21,8 +21,10 @@ from _torch_cases import (FA_BWD_CASES, FA_CASES, FA_GEMMA_CASES, FA_MOE_CASES,
                           PA_CASES, PA_SPLIT_CASES, TOL, fa_bwd_inputs, fa_inputs,
                           gla_inputs, gla_mma_inputs, pa_inputs, pa_split_inputs)
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cuda,
-                                                        flash_attention_cuda)
+from repro_torch.kernels.flash_attention.kernel import (bwd_route,
+                                                        flash_attention_bwd_cuda,
+                                                        flash_attention_cuda,
+                                                        flash_attention_fwd_cuda)
 from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
 from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -141,7 +143,9 @@ def test_flash_attention_cuda_edge_shapes(case, dtype, cuda_device):
 
 # ---------------------------------------------------------------------------
 # Flash backward: the kernel against attention_bwd_ref on the same inputs,
-# max |err| of each gradient over its largest |value|.
+# max |err| of each gradient over its largest |value|, on the route
+# bwd_route names (bf16 at D 32, 64, 128: the tensor cores; bf16 at D 320
+# and fp32: the CUDA cores).
 # ---------------------------------------------------------------------------
 
 
@@ -151,6 +155,19 @@ def _bwd_inputs(case, device, dtype, seed=6):
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     o = attention_ref(q, k, v, **kw)
     return q, k, v, o, do, kw
+
+
+def _bwd_routed(case, dtype, call):
+    """``call()``'s result, asserting that it made one backward launch, on
+    the route ``bwd_route`` names for the case's dtype and head dim."""
+    want = bwd_route(DTYPES[dtype], case[5])
+    before = dict(flash_attention_bwd_cuda.launches_by_route)
+    out = call()
+    torch.cuda.synchronize()
+    after = flash_attention_bwd_cuda.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == want) for r in after}
+    return out
 
 
 def _grads_close(got, ref, tol):
@@ -166,12 +183,15 @@ def _grads_close(got, ref, tol):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FA_BWD_CASES)
 def test_flash_attention_bwd_cuda_matches_plain(case, dtype, cuda_device):
+    """Within tolerance of the plain version on the route the rule names,
+    and two calls bit-equal (no atomics)."""
     q, k, v, o, do, kw = _bwd_inputs(case, cuda_device, dtype)
     before = flash_attention_bwd_cuda.launches
-    got = flash_attention_bwd_cuda(q, k, v, o, do, **kw)
-    torch.cuda.synchronize()
+    got = _bwd_routed(case, dtype, lambda: flash_attention_bwd_cuda(q, k, v, o, do, **kw))
     assert flash_attention_bwd_cuda.launches == before + 1
     _grads_close(got, attention_bwd_ref(q, k, v, o, do, **kw), TOL[dtype])
+    again = flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 @pytest.mark.gpu
@@ -200,7 +220,7 @@ FA_BWD_MASKED_CASES = [
 def test_flash_attention_bwd_cuda_masked_rows_give_zero(case, dtype, cuda_device):
     """A row whose keys are all masked gets zero gradients, not NaN."""
     q, k, v, o, do, kw = _bwd_inputs(case, cuda_device, dtype)
-    got = flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    got = _bwd_routed(case, dtype, lambda: flash_attention_bwd_cuda(q, k, v, o, do, **kw))
     _grads_close(got, attention_bwd_ref(q, k, v, o, do, **kw), TOL[dtype])
     Sq, Sk, window, q_offset = case[1], case[2], case[7], case[8]
     qpos = torch.arange(Sq, device=cuda_device) + q_offset
@@ -213,14 +233,20 @@ def test_flash_attention_bwd_cuda_masked_rows_give_zero(case, dtype, cuda_device
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_autograd_goes_through_the_kernels(dtype, cuda_device):
     """The dispatcher's cuda path under autograd: one forward and one
-    backward launch, gradients as attention_bwd_ref's; under no_grad the
+    backward launch (the backward on its route, reading the forward's lse
+    on the wgmma route), gradients as attention_bwd_ref's; under no_grad the
     forward launch alone."""
     case = FA_BWD_CASES[0]
     q, k, v, o, do, kw = _bwd_inputs(case, cuda_device, dtype)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     fwd, bwd = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
-    out = flash_attention(*leaves, **kw)
-    out.backward(do)
+
+    def forward_and_backward():
+        out = flash_attention(*leaves, **kw)
+        out.backward(do)
+        return out
+
+    out = _bwd_routed(case, dtype, forward_and_backward)
     assert (flash_attention_cuda.launches - fwd,
             flash_attention_bwd_cuda.launches - bwd) == (1, 1)
     ref = attention_bwd_ref(q, k, v, out.detach(), do, **kw)
@@ -228,6 +254,46 @@ def test_flash_attention_autograd_goes_through_the_kernels(dtype, cuda_device):
     with torch.no_grad():
         flash_attention(*leaves, **kw)
     assert flash_attention_bwd_cuda.launches - bwd == 1
+
+
+def _plain_lse(q, k, *, causal, window, q_offset):
+    """Each row's log-sum-exp of the scaled, masked logits in fp32: (B, Hq,
+    Sq)."""
+    B, Sq, Hq, D = q.shape
+    Sk, G = k.shape[1], Hq // k.shape[2]
+    if q_offset is None:
+        q_offset = Sk - Sq
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     k.float().repeat_interleave(G, dim=2)) * D ** -0.5
+    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return torch.where(mask, s, torch.full_like(s, -torch.inf)).logsumexp(-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [c for c in FA_BWD_CASES if c[5] <= 128])
+def test_flash_attention_fwd_lse(case, cuda_device):
+    """The wgmma forward's optional log-sum-exp output: the output is the
+    same bits with it and without it, and the lse is within 1e-4 of
+    max(|lse|, 1) of the plain one; a backward handed that lse gives the
+    bits of one that launches the forward itself."""
+    q, k, v, o, do, kw = _bwd_inputs(case, cuda_device, "bfloat16")
+    plain_out, none = flash_attention_fwd_cuda(q, k, v, **kw)
+    out, lse = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(out, plain_out)
+    assert lse.dtype == torch.float32 and lse.shape == (q.shape[0], q.shape[2], q.shape[1])
+    ref = _plain_lse(q, k, **kw)
+    err = ((lse - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+    assert err <= 1e-4, err
+    given = flash_attention_bwd_cuda(q, k, v, out, do, lse=lse, **kw)
+    fetched = flash_attention_bwd_cuda(q, k, v, out, do, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(given, fetched))
 
 
 @pytest.mark.gpu
