@@ -6,13 +6,15 @@
 Phases, each of which exits non-zero on failure:
   1. setup: the card's name and power limit, torch and CUDA versions, TF32
      off for matmuls and cuDNN;
-  2. build the eight CUDA libraries from src/repro_torch/csrc (one nvcc
+  2. build the nine CUDA libraries from src/repro_torch/csrc (one nvcc
      each, all started together) into build/torch_kernels/, count the
      tensor-core instructions in the SASS of the bf16 flash library (HGMMA,
      also in its D 320 instance alone), of the tensor-core flash backward's
      D 64 and D 128 instances (HGMMA, with ptxas's registers and spills of
      each) and of the bf16 gla_scan library (HMMA), and print ptxas's
-     registers and spills of both flash libraries' D 320 instances;
+     registers and spills of both flash libraries' D 320 instances and of
+     the gla_scan backward's kernels (with its most registers and spills
+     over all 54 instances);
   3. each kernel against its plain PyTorch version at the main paths'
      shapes (flash and paged also at granite-MoE's, DBRX's and
      qwen2_vl_72b's heads, the last from generators of their own):
@@ -36,14 +38,19 @@ Phases, each of which exits non-zero on failure:
      max |err| over the largest |gradient| beside the tolerance, two calls
      bit-equal, kernel, plain and SDPA-backward times and the bound (2.5x
      the forward's operations), and on the tensor-core rows the CUDA-core
-     kernel's time and error beside them; then
-     reduced TinyLlama, granite-MoE, DBRX, qwen2_vl_72b (with an embeds
+     kernel's time and error beside them; the gla_scan backward against
+     gla_scan_bwd_ref at RWKV6's training shape (B 8, H 64, S 2048, K = V
+     = 64, bf16), Zamba2's (one decay per head, stride-0 w), a ragged S,
+     strong decay and fp32 at K = V = 32: max |err| over the largest
+     |gradient| beside the tolerance, two calls bit-equal, kernel, plain and
+     bound times (no library time); then reduced TinyLlama, granite-MoE, DBRX, qwen2_vl_72b (with an embeds
      prefix), RWKV6, Zamba2, SeamlessM4T and gemma3_4b (with a tail)
      models on the card (the kernels) held against the CPU path (their
      plain versions) in fp32, for the MoE family with its load-balance loss
-     (and, once, a MoE layer that drops tokens), and reduced TinyLlama's
-     and granite-MoE's loss_fn and every gradient leaf (the forward and
-     backward kernels) the same way;
+     (and, once, a MoE layer that drops tokens), and reduced TinyLlama's,
+     granite-MoE's, RWKV6's and Zamba2's loss_fn and every gradient leaf
+     (the forward and backward kernels of flash and gla_scan, launches
+     counted) the same way;
   4. the TinyLlama path: full-width TinyLlama (random weights from the
      seed) -- prefill of 8 x 512 tokens through the bf16 flash kernel, dense
      decode, then paged decode through the paged kernel (every launch on
@@ -111,7 +118,18 @@ Phases, each of which exits non-zero on failure:
      restored bit-exact into a fresh Trainer whose 6 resumed steps give
      the uninterrupted run's losses bit for bit, the last one profiled
      (device busy and idle share, largest items, the port's kernels and
-     the flash backward's share).
+     the flash backward's share);
+ 15. the gated-linear-attention family trains: zamba2_1p2b at full width
+     and depth and rwkv6_7b at full width with 6 of its 32 layers, B 8 x
+     2048 from the structured token stream: the first step's gradients of
+     the leaves that feed the scan (RWKV6: wd_a, wd_b, w_k, w_v; Mamba2:
+     in_bc, in_xz, in_dt, A_log) and the global norm through the kernels
+     held against the plain GLA path on the card (two planted faults of
+     the backward must fail that limit), then 10 Trainer steps (loss, grad
+     norm, ms, peak memory, launches by route a step: RWKV6 12 forward on
+     mma and 6 backward on simt; Zamba2 74 and 38, with flash 12 forward
+     and 6 backward on wgmma) and one profiled step (device busy and idle
+     share, largest items, the gla_scan backward's share).
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
 """
@@ -142,7 +160,8 @@ PORT_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_kernel",
                 "flash_bwd_delta_kernel", "flash_bwd_wgmma_dkdv_kernel",
                 "flash_bwd_wgmma_dq_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
                 "paged_attention_split_kernel", "paged_attention_kernel",
-                "gla_scan_mma_kernel", "gla_scan_kernel")
+                "gla_scan_mma_kernel", "gla_scan_kernel", "gla_bwd_scan_kernel",
+                "gla_bwd_dqk_kernel", "gla_bwd_dv_kernel")
 # The route every bf16 prefill launch of a kernel must take.
 PREFILL_ROUTES = {"flash_attention": "wgmma", "gla_scan": "mma"}
 TOL_BF16 = 2e-2                 # kernel vs plain version, bf16 in and out
@@ -311,6 +330,41 @@ TOL_TRAIN_GRADS = 0.05
 # whole batch against the fp32 sum of two half batches' bf16 gradients.
 # An H100 measured 0.0031252 at seed 0; this allows 3.5 times that.
 TOL_TRAIN_MICRO = 0.011
+# B, H, S, K, V, dtype name, decay, with the final state's gradient, use:
+# the gla_scan backward's cases of phase 3 (chunk 128): RWKV6's training
+# call (phase 15: no final-state gradient), Zamba2's Mamba2 call (one decay
+# per head, broadcast over K with stride 0), a ragged S, strong decay (w =
+# -2.5: the guard saturates) and fp32 at K = V = 32.
+GLA_BWD = [(8, 64, 2048, 64, 64, "bfloat16", "rwkv6", False, "rwkv6_7b training"),
+           (8, 64, 2048, 64, 64, "bfloat16", "mamba2", True, "zamba2_1p2b training"),
+           (8, 64, 2000, 64, 64, "bfloat16", "rwkv6", True, "ragged S 2000"),
+           (8, 64, 2048, 64, 64, "bfloat16", "strong", True, "strong decay"),
+           (8, 64, 2048, 32, 32, "float32", "rwkv6", True, "fp32")]
+# The gla_scan backward against gla_scan_bwd_ref, max |err| over the largest
+# |gradient| (as TOL_BWD): bf16 one rounding of each gradient, fp32
+# summation order.
+TOL_GLA_BWD = {"bfloat16": 2e-2, "float32": 1e-4}
+# Phase 15: zamba2_1p2b at full width and depth and rwkv6_7b at full width
+# with RWKV6_TRAIN_LAYERS of its 32 layers (bf16 weights and gradients and
+# fp32 moments of all 32 come to about 90 GB), B 8 x S 2048 from the
+# structured stream, SSM_TRAIN["steps"] Trainer steps after the gate.
+RWKV6_TRAIN_LAYERS = 6
+SSM_TRAIN = dict(B=8, S=2048, steps=10)
+# The gradient gate of phase 15 (ssm_train_gate): a step's gradients of the
+# leaves that feed the scan's inputs, through the kernels (bf16 in and out,
+# the mma forward's hi/lo roundings), against the plain GLA path
+# (gla_scan_xla under autograd, fp32 inside), the worst ||g - g_plain|| /
+# ||g_plain|| and the global norms' relative difference.  An H100 measured
+# 0.0068225 (rwkv6_7b, at layer 3's wd_a) and 0.055082 (zamba2_1p2b, at
+# group 4 layer 5's in_dt) at seed 0, and at least 0.98621 and 4.0052 with
+# the planted faults of gla_bwd_faults; these allow 3.5 times the first two.
+TOL_SSM_TRAIN_GRADS = {"rwkv6_7b": 0.024, "zamba2_1p2b": 0.19}
+# The Trainer step whose gradients the gate reads.  Mamba2's short-conv
+# weights start at zero (the reference's init), so x, v and the scan's
+# output are zero and every gradient through the scan is exactly zero until
+# a step with a nonzero lr has moved them: with 2 warmup steps step 0's lr
+# is 0 and step 1's is not, so Zamba2's gate reads step 2.
+SSM_GATE_STEP = {"rwkv6_7b": 0, "zamba2_1p2b": 2}
 
 
 def log(msg: str) -> None:
@@ -529,6 +583,28 @@ def check_bwd_sass(report: dict) -> None:
         if count == 0:
             raise SystemExit(f"the tensor-core flash backward's D {dim} instances "
                              "have no tensor-core (HGMMA) instruction")
+
+
+def gla_bwd_ptxas(report: dict) -> None:
+    """ptxas's registers and spills of the gla_scan backward: each kernel's
+    bf16 instance at K = V = 64 (the models' calls), and the most registers
+    and the spill stores over all its instances."""
+    lib = "gla_scan_bwd"
+    if lib not in report:
+        log(f"ptxas -v, {lib}: built before this run, no ptxas output")
+        return
+    text = report[lib]["ptxas"]
+    for label, marker in (
+            ("scan, states", "gla_bwd_scan_kernelI13__nv_bfloat16Li64ELi64ELb0E"),
+            ("scan, state gradients", "gla_bwd_scan_kernelI13__nv_bfloat16Li64ELi64ELb1E"),
+            ("dqk", "gla_bwd_dqk_kernelI13__nv_bfloat16Li64E"),
+            ("dv", "gla_bwd_dv_kernelI13__nv_bfloat16Li64ELi32E")):
+        log(f"ptxas -v, {lib} {label} (bf16, K = V = 64): "
+            + "; ".join(ptxas_lines(text, marker)))
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+    spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", text))
+    log(f"ptxas -v, {lib}: {len(regs)} instances, at most {max(regs)} registers, "
+        f"{spills} bytes of spill stores in all")
 
 
 def timed_prefill(api, params, tokens, S, cache_len, kernels, want,
@@ -776,6 +852,99 @@ def check_gla(gen, timer) -> dict:
     return rows[0]
 
 
+def gla_bwd_work(q, v, w, chunk: int, with_final: bool) -> tuple[int, int]:
+    """(bytes, flops) one gla_scan backward call must move and do: q, k, v,
+    dO (and the final state's gradient) read and dq, dk, dv and dw written
+    once each, w as its strides lay it out, and the chunked form's
+    products: P, dP and the three intra-chunk gradients over the causal
+    pairs of each chunk, and five K x V products a row (dO S^T, v dS^T,
+    (k~ e) dS, q~^T dO and the state's k~^T v)."""
+    B, H, S, K = q.shape
+    V = v.shape[-1]
+    C = min(chunk, S)
+    w_elems = B * H * S * (K if w.stride(-1) else 1)
+    nbytes = (q.element_size() * (4 * q.numel() + 3 * v.numel())
+              + 4 * w_elems + 4 * q.numel() + 4 * B * H * K * V * with_final)
+    flops = 0
+    for c0 in range(0, S, C):
+        n = min(C, S - c0)
+        flops += 2 * (n * (n + 1) // 2) * (3 * K + 2 * V) + 10 * n * K * V
+    return nbytes, B * H * flops
+
+
+def check_gla_bwd(timer, seed) -> dict:
+    """The gla_scan backward kernel against ``gla_scan_bwd_ref`` at
+    ``GLA_BWD``'s shapes, from a generator of its own: the error beside its
+    tolerance, two calls bit-equal, kernel, plain and bound times (the
+    bound's two parts named).  No single PyTorch call computes the scan's
+    gradient, so there is no library time.  Returns the rows by use."""
+    from repro_torch.kernels.ssm_scan.kernel import bwd_route, gla_scan_bwd_cuda
+    from repro_torch.kernels.ssm_scan.ref import gla_scan_bwd_ref
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = {}
+    for B, H, S, K, V, dt, decay, with_final, use in GLA_BWD:
+        dtype = getattr(torch, dt)
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=g, device="cuda")
+        q, k = (randn(B, H, S, K) * 0.5).to(dtype), (randn(B, H, S, K) * 0.5).to(dtype)
+        v, do = randn(B, H, S, V).to(dtype), randn(B, H, S, V).to(dtype)
+        if decay == "mamba2":
+            w = (-0.05 * torch.exp(randn(B, H, S, 1))).expand(B, H, S, K)
+        elif decay == "strong":
+            w = torch.full((B, H, S, K), -2.5, device="cuda")
+        else:
+            w = -0.05 * torch.exp(randn(B, H, S, K))
+        d_final = randn(B, H, K, V) if with_final else None
+        route = bwd_route(dtype, K, V, 128)
+        before = dict(gla_scan_bwd_cuda.launches_by_route)
+        got = gla_scan_bwd_cuda(q, k, v, w, do, d_final, 128)
+        again = gla_scan_bwd_cuda(q, k, v, w, do, d_final, 128)
+        torch.cuda.synchronize()
+        routed = {r: c - before[r] for r, c in
+                  gla_scan_bwd_cuda.launches_by_route.items()} == {
+                      r: 2 * (r == route) for r in before}
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ref = gla_scan_bwd_ref(q, k, v, w, do, d_final, 128)
+        err = bwd_err(got, ref)
+        abs_err = max(max_err(a, b) for a, b in zip(got, ref))
+        largest = max(r.float().abs().max().item() for r in ref)
+        del ref, again
+        tol = TOL_GLA_BWD[dt]
+        ok = routed and same and err <= tol and all(
+            bool(torch.isfinite(t.float()).all()) for t in got)
+        del got
+        nbytes, flops = gla_bwd_work(q, v, w, 128, with_final)
+        peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+        bnd, by = bound_ms(nbytes, flops, peak)
+        row = dict(case=(B, H, S, K, V, dt, decay, 128), use=use, err=err,
+                   abs_err=abs_err, ok=ok, route=[route],
+                   ms=timer.ms(lambda: gla_scan_bwd_cuda(q, k, v, w, do, d_final, 128),
+                               iters=10),
+                   plain_ms=timer.ms(lambda: gla_scan_bwd_ref(q, k, v, w, do, d_final, 128),
+                                     iters=3, warmup=1),
+                   bound_ms=bnd, bound_by=by, library_ms=None)
+        log(f"gla_scan backward {row['case']} ({use}): route {route}"
+            f"{'' if routed else ' NOT TAKEN'}; max|err| {err:.3e} of max |grad| "
+            f"(tol {tol}; {abs_err:.3e} absolute, largest |grad| {largest:.4g}), two "
+            f"calls {'bit-equal' if same else 'DIFFER'}; kernel {row['ms']:.4f} ms plain "
+            f"{row['plain_ms']:.4f} ms bound {bnd:.4f} ms ({by}: {nbytes / 1e9:.4f} GB "
+            f"at 3.35 TB/s {nbytes / H100_BYTES_PER_S * 1e3:.4f} ms, {flops / 1e9:.3f} "
+            f"GFLOP at the {'bf16 tensor-core' if peak == H100_BF16_FLOPS else 'fp32'} "
+            f"rate {flops / peak * 1e3:.4f} ms, at the fp32 rate "
+            f"{flops / H100_FP32_FLOPS * 1e3:.4f} ms; kernel {row['ms'] / bnd:.1f}x the "
+            "bound); no single PyTorch call computes the scan's gradient")
+        rows[use] = row
+        del q, k, v, w, do, d_final
+        torch.cuda.empty_cache()
+    if not all(r["ok"] for r in rows.values()):
+        raise SystemExit("gla_scan backward kernel disagrees with its plain version, "
+                         "gives non-finite gradients, differs between two calls "
+                         "or took another route than the rule's")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path at full width.
 # ---------------------------------------------------------------------------
@@ -908,40 +1077,69 @@ def check_flash_bwd(timer, seed) -> dict:
     return rows
 
 
+def reduced_train_launches(cfg) -> tuple[int, int, int, int]:
+    """(flash forward, flash backward, gla_scan forward, gla_scan backward)
+    launches of one value_and_grad: a rematerialized layer runs its forward
+    kernel twice (Zamba2's tail is not rematerialized)."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        return 0, 0, 2 * L, L
+    if cfg.family == "hybrid":
+        groups = L // cfg.attn_every
+        return 2 * groups, groups, 2 * groups * cfg.attn_every + L % cfg.attn_every, L
+    return 2 * L, L, 0, 0
+
+
 def check_reduced_grads_against_cpu(arch: str, seed: int) -> None:
-    """A 2-layer reduced ``arch`` in fp32: ``loss_fn``'s value and every
-    gradient leaf on the card (the flash forward, twice a layer under
-    remat, and its backward kernel once a layer) against the CPU path
-    (their plain versions), each leaf's max |err| over its largest
-    |value|."""
+    """A reduced ``arch`` in fp32 (2 layers; zamba2_1p2b: 5 Mamba2 layers,
+    two groups of 2 and a tail of 1, with seeded short-conv weights):
+    ``loss_fn``'s value and every
+    gradient leaf on the card (the flash and gla_scan forwards, twice a
+    rematerialized layer, and their backward kernels once a layer) against
+    the CPU path (their plain versions), each leaf's max |err| over its
+    largest |value|."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.ssm_scan.kernel import gla_scan_bwd_cuda, gla_scan_cuda
     from repro_torch.models.registry import build_model
     from repro_torch.train.loop import value_and_grad
     from repro_torch.tree import leaf_paths
 
-    cfg = dataclasses.replace(reduced_config(get_config(arch)), num_layers=2)
+    cfg = reduced_config(get_config(arch))
+    if cfg.family != "hybrid":
+        cfg = dataclasses.replace(cfg, num_layers=2)
     params, _ = build_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
+    if cfg.family == "hybrid":
+        # Mamba2's short-conv weights start at zero, which zeroes the scan's
+        # x, v and output and every gradient through it but dv's: seeded
+        # ones make the scan live
+        g = torch.Generator().manual_seed(seed + 1)
+        for part in ("groups", "tail"):
+            conv = params[part]["mamba"]["conv"]
+            conv.copy_(0.3 * torch.randn(conv.shape, generator=g))
     tok = torch.randint(0, cfg.vocab_size, (2, 2, 24),
                         generator=torch.Generator().manual_seed(seed))
+    counters = (flash_attention_cuda, flash_attention_bwd_cuda, gla_scan_cuda,
+                gla_scan_bwd_cuda)
     out = {}
     for dev in ("cpu", "cuda"):
-        fwd0, bwd0 = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
+        before = [fn.launches for fn in counters]
         loss, g = value_and_grad(build_model(cfg, dev), tree_to(params, dev, torch.float32),
                                  {"tokens": tok[0].to(dev), "labels": tok[1].to(dev)})
         out[dev] = (loss.float().cpu(), [t.float().cpu() for _, t in leaf_paths(g)])
-        launches = (flash_attention_cuda.launches - fwd0,
-                    flash_attention_bwd_cuda.launches - bwd0)
-    if launches != (2 * cfg.num_layers, cfg.num_layers):
+        launches = tuple(fn.launches - b for fn, b in zip(counters, before))
+    if launches != reduced_train_launches(cfg):
         raise SystemExit(f"reduced {arch} gradients on the card launched "
-                         f"{launches} flash forwards and backwards")
+                         f"{launches} flash forwards and backwards and gla_scan "
+                         "forwards and backwards")
     worst = max([abs(out["cpu"][0] - out["cuda"][0]).item() / abs(out["cpu"][0]).item()]
                 + [max_err(a, b) / max(b.abs().max().item(), 1e-30)
                    for a, b in zip(out["cuda"][1], out["cpu"][1])])
-    log(f"reduced {arch}, card vs CPU path (fp32, loss_fn and its "
+    log(f"reduced {arch} (L{cfg.num_layers}), card vs CPU path (fp32, loss_fn and its "
         f"{len(out['cpu'][1])} gradient leaves; {launches[0]} forward and "
-        f"{launches[1]} backward flash launches): max|err| {worst:.3e} of "
+        f"{launches[1]} backward flash launches, {launches[2]} forward and "
+        f"{launches[3]} backward gla_scan launches): max|err| {worst:.3e} of "
         f"max |value| (tol {TOL_FP32})")
     if worst > TOL_FP32:
         raise SystemExit(f"reduced {arch} gradients on the card disagree with "
@@ -2042,10 +2240,12 @@ def train_steps(trainer, n, flash_cuda, bwd_cuda, label) -> list[dict]:
     return out
 
 
-def profile_train_step(trainer) -> float:
+def profile_train_step(trainer, share: str = "flash_bwd",
+                       share_name: str = "flash backward") -> float:
     """Device busy time (ms), the largest device items and the port's
-    kernels of one Trainer step, with the flash backward's share of the
-    busy time, from a torch.profiler trace (device events only)."""
+    kernels of one Trainer step, with the share of the busy time of the
+    port's kernels whose names start with ``share`` (``share_name``), from
+    a torch.profiler trace (device events only)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2059,14 +2259,14 @@ def profile_train_step(trainer) -> float:
     ours = {name: (sum(e.self_device_time_total for e in es) / 1e3,
                    sum(e.count for e in es)) for name in PORT_KERNELS
             if (es := [e for e in kernels if re.search(rf"::{name}[<(]", e.key)])}
-    backward = sum(ms for name, (ms, _) in ours.items() if name.startswith("flash_bwd"))
+    part = sum(ms for name, (ms, _) in ours.items() if name.startswith(share))
     log("train step profile: device busy " f"{busy:.1f} ms in "
         f"{sum(e.count for e in kernels)} device events; top: "
         + "; ".join(f"{e.key[:56]} {e.self_device_time_total / 1e3:.1f} ms "
                     f"x{e.count}" for e in top)
         + "; port kernels: " + "; ".join(f"{name} {ms:.1f} ms x{count}"
                                         for name, (ms, count) in ours.items())
-        + f"; flash backward {backward:.1f} ms ({100 * backward / busy:.1f}% of busy)")
+        + f"; {share_name} {part:.1f} ms ({100 * part / busy:.1f}% of busy)")
     return busy
 
 
@@ -2166,6 +2366,214 @@ def train_path(api, params, gen, seed, flash_cuda, bwd_cuda) -> dict:
     return {"launches": launches, "gate": gate, "micro": micro}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the gated-linear-attention family trains.
+# ---------------------------------------------------------------------------
+
+
+def gla_leaves(g, cfg) -> dict:
+    """The gradients of the leaves that feed the scan's inputs, fp32, by
+    (layer, name): RWKV6's decay MLP (wd_a, wd_b) and key and value
+    projections; Mamba2's B/C, x/z and dt projections and A_log."""
+    if cfg.family == "ssm":
+        t = g["blocks"]["time"]
+        return {(l, n): t[n][l].float() for n in ("wd_a", "wd_b", "w_k", "w_v")
+                for l in range(cfg.num_layers)}
+    names = ("in_bc", "in_xz", "in_dt", "A_log")
+    m = g["groups"]["mamba"]
+    out = {(f"group {i}.{j}", n): m[n][i, j].float() for n in names
+           for i in range(m[n].shape[0]) for j in range(m[n].shape[1])}
+    if "tail" in g:
+        t = g["tail"]["mamba"]
+        out.update({(f"tail {i}", n): t[n][i].float() for n in names
+                    for i in range(t[n].shape[0])})
+    return out
+
+
+def ssm_grad_reading(g, cfg, ref: dict, ref_norm: float) -> tuple[float, str]:
+    """Phase 15's gate reading: the worst over ``ref``'s leaves of
+    ||g - ref|| / ||ref||, and the global norms' relative difference; with
+    the leaf or norm that gave it."""
+    from repro_torch.optim.adamw import global_norm
+
+    got = gla_leaves(g, cfg)
+    per = {f"{k[0]} {k[1]}": (got[k] - r).norm().item() / r.norm().item()
+           for k, r in ref.items()}
+    per["global norm"] = abs(global_norm(g).item() - ref_norm) / ref_norm
+    worst = max(per, key=per.get)
+    return per[worst], worst
+
+
+def gla_bwd_faults(chunk: int = 128) -> dict:
+    """Planted faults of the gla_scan backward: each breaks the (dq, dk,
+    dv, dw) that ``GlaScanFn``'s backward gets from the kernel."""
+    def dw_zeroed(dq, dk, dv, dw):
+        return dq, dk, dv, torch.zeros_like(dw)
+
+    def carry_dropped(dq, dk, dv, dw):
+        dk, dv = dk.clone(), dv.clone()
+        dk[:, :, :-chunk], dv[:, :, :-chunk] = 0, 0
+        return dq, dk, dv, dw
+
+    return {"dw zeroed": dw_zeroed,
+            "dk and dv zeroed before the last chunk (a dropped dS carry)": carry_dropped}
+
+
+def train_counters():
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cuda,
+                                                            flash_attention_cuda)
+    from repro_torch.kernels.ssm_scan.kernel import gla_scan_bwd_cuda, gla_scan_cuda
+
+    return {"gla_scan": gla_scan_cuda, "gla_scan_bwd": gla_scan_bwd_cuda,
+            "flash_attention": flash_attention_cuda,
+            "flash_attention_bwd": flash_attention_bwd_cuda}
+
+
+def routes_since(before: dict) -> dict:
+    """Launches by route of ``train_counters()`` since ``before``."""
+    return {name: {r: c - before[name][r] for r, c in fn.launches_by_route.items()}
+            for name, fn in train_counters().items()}
+
+
+def routes_now() -> dict:
+    return {name: dict(fn.launches_by_route) for name, fn in train_counters().items()}
+
+
+def ssm_train_want(cfg) -> dict:
+    """A step's launches by route: every forward of the scan and of flash
+    on the tensor cores (bf16), the scan's backward on CUDA cores, flash's
+    on wgmma."""
+    ffwd, fbwd, gfwd, gbwd = reduced_train_launches(cfg)
+    return {"gla_scan": {"mma": gfwd, "simt": 0}, "gla_scan_bwd": {"simt": gbwd},
+            "flash_attention": {"wgmma": ffwd, "simt": 0},
+            "flash_attention_bwd": {"wgmma": fbwd, "simt": 0}}
+
+
+def ssm_train_gate(api, params, batch, step: int) -> float:
+    """Step ``step``'s gradients through the kernels against the plain GLA
+    path (``gla_scan_xla`` under autograd on the card, patched into
+    ``models.ssm``), then with each planted fault of ``gla_bwd_faults``,
+    each of which must fail ``TOL_SSM_TRAIN_GRADS``.  Every leaf the gate
+    reads must have a nonzero plain gradient.  Returns the kernels'
+    reading."""
+    from repro_torch.kernels.ssm_scan import kernel as GK
+    from repro_torch.kernels.ssm_scan.ops import gla_scan_xla
+    from repro_torch.models import ssm as SSM
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.loop import value_and_grad
+
+    cfg = api.cfg
+    tol = TOL_SSM_TRAIN_GRADS[cfg.name]
+    kernel_gla = SSM.gla_scan
+
+    def plain(q, k, v, w, chunk=128):
+        return gla_scan_xla(q, k, v, w, chunk=chunk)
+
+    SSM.gla_scan = plain
+    try:
+        t0 = time.perf_counter()
+        _, g = value_and_grad(api, params, batch)
+        sync(api.device)
+        plain_s = time.perf_counter() - t0
+    finally:
+        SSM.gla_scan = kernel_gla
+    ref, ref_norm = gla_leaves(g, cfg), global_norm(g).item()
+    del g
+    zero = [k for k, r in ref.items() if not r.norm().item() > 0]
+    if zero:
+        raise SystemExit(f"{cfg.name} gradient gate at step {step}: the plain path's "
+                         f"gradients of {zero} are zero, so the gate reads nothing")
+    before = routes_now()
+    t0 = time.perf_counter()
+    _, g = value_and_grad(api, params, batch)
+    sync(api.device)
+    kernel_s = time.perf_counter() - t0
+    launches = routes_since(before)
+    reading, worst = ssm_grad_reading(g, cfg, ref, ref_norm)
+    del g
+    log(f"{cfg.name} gradient gate: step {step}'s gradients of {len(ref)} leaves "
+        f"({', '.join(sorted({n for _, n in ref}))}) and the global norm "
+        f"({ref_norm:.4f}), kernels ({kernel_s:.2f} s; launches {launches}) against "
+        f"the plain GLA path ({plain_s:.2f} s): {reading:.4e} at {worst} (limit {tol})")
+    if launches != ssm_train_want(cfg) or reading > tol:
+        raise SystemExit(f"{cfg.name} gradient gate failed")
+    real = GK.GlaScanFn.backward
+
+    def planted(fault):
+        def backward(ctx, do, d_final):
+            dq, dk, dv, dw, *rest = real(ctx, do, d_final)
+            return (*fault(dq, dk, dv, dw), *rest)
+        return staticmethod(backward)
+
+    try:
+        for name, fault in gla_bwd_faults().items():
+            GK.GlaScanFn.backward = planted(fault)
+            _, g = value_and_grad(api, params, batch)
+            r, worst = ssm_grad_reading(g, cfg, ref, ref_norm)
+            del g
+            log(f"{cfg.name} gradient gate, planted fault ({name}): {r:.4e} at {worst} "
+                f"(must fail: {'fails' if r > tol else 'passes'} the limit)")
+            if r <= tol:
+                raise SystemExit(f"{cfg.name} gradient gate passed a planted fault ({name})")
+    finally:
+        GK.GlaScanFn.backward = staticmethod(real)
+    return reading
+
+
+def ssm_train_path(api, params, seed) -> dict:
+    """Phase 15 for one model: ``SSM_TRAIN["steps"]`` Trainer steps from
+    ``params`` (loss, grad norm, ms, peak memory and launches by route a
+    step, held to ``ssm_train_want``), with the gradient gate on the
+    parameters and batch of step ``SSM_GATE_STEP`` before that step runs,
+    then one profiled step.  Returns the scan backward's launches over the
+    steps, the gate's reading, the step's wall and busy ms."""
+    from repro_torch.data.pipeline import BatchSpec, TokenPipeline
+    from repro_torch.train.loop import TrainConfig, Trainer
+
+    cfg, B, S, dev = api.cfg, SSM_TRAIN["B"], SSM_TRAIN["S"], api.device
+    pipe = TokenPipeline(BatchSpec(B, S, cfg.vocab_size), seed, structured=True)
+    on_card = dev.type == "cuda"
+    trainer = Trainer(api, TrainConfig(warmup_steps=2), pipe, params=params)
+    del params
+    want = ssm_train_want(cfg)
+    recs, gate = [], None
+    for _ in range(SSM_TRAIN["steps"]):
+        if trainer.step == SSM_GATE_STEP[cfg.name]:
+            batch = {k: torch.as_tensor(v).to(dev)
+                     for k, v in pipe.batch_at(trainer.step).items()}
+            gate = ssm_train_gate(api, trainer.params, batch, trainer.step)
+            del batch
+            if on_card:
+                torch.cuda.empty_cache()
+        before = routes_now()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        sync(dev)
+        t0 = time.perf_counter()
+        rec = dict(trainer.run(1)[-1])
+        rec["ms"] = (time.perf_counter() - t0) * 1e3
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+        rec["launches"] = routes_since(before)
+        log(f"{cfg.name} step {rec['step']}: loss {rec['loss']:.6f} grad norm "
+            f"{rec['grad_norm']:.6f} lr {rec['lr']:.4e} {rec['ms']:.1f} ms peak "
+            f"{rec['peak_gib']:.3f} GiB; launches {rec['launches']}")
+        recs.append(rec)
+    bwd_launches = sum(r["launches"]["gla_scan_bwd"]["simt"] for r in recs)
+    losses = [r["loss"] for r in recs]
+    if any(r["launches"] != want for r in recs):
+        raise SystemExit(f"{cfg.name} train steps' launches differ from {want} a step")
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"{cfg.name} training loss not finite: {losses}")
+    busy = profile_train_step(trainer, "gla_bwd", "gla_scan backward")
+    wall = statistics.median(r["ms"] for r in recs[1:])
+    log(f"{cfg.name} L{cfg.num_layers} train step at {B} x {S}: wall {wall:.1f} ms "
+        f"(median of the steps but the first), device busy {busy:.1f} ms (idle "
+        f"{100 * (1 - busy / wall):.1f}%); losses {losses} (mean of the first 3 "
+        f"{np.mean(losses[:3]):.6f}, of the last 3 {np.mean(losses[-3:]):.6f}); "
+        f"peak {max(r['peak_gib'] for r in recs):.3f} GiB")
+    return {"launches": bwd_launches, "gate": gate, "wall_ms": wall, "busy_ms": busy}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2206,10 +2614,12 @@ def main() -> int:
     report = _build.build(["flash_attention", "flash_attention_wgmma",
                            "flash_attention_bwd", "flash_attention_bwd_wgmma",
                            "paged_attention", "paged_attention_split",
-                           "gla_scan", "gla_scan_mma"])
+                           "gla_scan", "gla_scan_mma", "gla_scan_bwd"])
     log(f"build: {time.perf_counter() - t0:.1f} s wall into {_build.BUILD_DIR} "
         + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in report.items()))
     for k, v in report.items():
+        if k == "gla_scan_bwd":   # 54 instances: summarised by gla_bwd_ptxas
+            continue
         for line in v["ptxas"].splitlines():
             if any(w in line for w in ("registers", "spill", "wgmma", "arning")):
                 log(f"  {k}: {line.strip()}")
@@ -2226,6 +2636,7 @@ def main() -> int:
                  else ["built before this run: no ptxas output"])
         log(f"ptxas -v, D 320 instance of {lib}: " + "; ".join(lines))
     check_bwd_sass(report)
+    gla_bwd_ptxas(report)
     hmma = sass_count(_build.lib_path("gla_scan_mma"), "HMMA")
     log(f"SASS of gla_scan_mma: {hmma} HMMA instructions")
     if hmma == 0:
@@ -2238,10 +2649,11 @@ def main() -> int:
     paged_row = check_paged(gen, timer, args.seed)
     gla_row = check_gla(gen, timer)
     flash_bwd = check_flash_bwd(timer, args.seed)
+    gla_bwd = check_gla_bwd(timer, args.seed)
     del timer
     for arch in ("tinyllama_1p1b",) + MOE_ARCHS + ("qwen2_vl_72b",):
         check_reduced_against_cpu(arch, args.seed)
-    for arch in ("tinyllama_1p1b", MOE_ARCHS[0]):
+    for arch in ("tinyllama_1p1b", MOE_ARCHS[0], "rwkv6_7b", "zamba2_1p2b"):
         check_reduced_grads_against_cpu(arch, args.seed)
     for arch in ("rwkv6_7b", "zamba2_1p2b", "seamless_m4t_medium", "gemma3_4b"):
         check_reduced_api_against_cpu(arch, args.seed)
@@ -2393,6 +2805,26 @@ def main() -> int:
     del api, params
     torch.cuda.empty_cache()
     log(f"tinyllama_1p1b training phase {time.perf_counter() - t_phase:.1f} s")
+
+    # 15. the gated-linear-attention family trains at full width, from a
+    # generator of its own (the gate's limits are readings at its draw)
+    ssm_train = {}
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    for arch in ("zamba2_1p2b", "rwkv6_7b"):
+        t_phase = time.perf_counter()
+        cfg = get_config(arch)
+        if arch == "rwkv6_7b":
+            log(f"rwkv6_7b: {RWKV6_TRAIN_LAYERS} of its {cfg.num_layers} layers at "
+                "full width for training (bf16 weights and gradients and fp32 "
+                "moments of all 32 are about 90 GB)")
+            cfg = dataclasses.replace(cfg, num_layers=RWKV6_TRAIN_LAYERS)
+        api = build_model(cfg)
+        params, _ = api.init(gen)
+        log(f"{arch}: weights {weights_ms(params) * H100_BYTES_PER_S / 1e12:.3f} GB")
+        ssm_train[arch] = ssm_train_path(api, params, args.seed)
+        del api, params
+        torch.cuda.empty_cache()
+        log(f"{arch} training phase {time.perf_counter() - t_phase:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     entries = []
@@ -2417,7 +2849,11 @@ def main() -> int:
             ("flash_attention_bwd", flash_bwd["tinyllama_1p1b training"],
              train["launches"]["flash_attention_bwd"]["wgmma"],
              "flash_attention_bwd_wgmma",
-             "src/repro/kernels/flash_attention/kernel.py:96")):
+             "src/repro/kernels/flash_attention/kernel.py:96"),
+            # the gradient of the Pallas forward, likewise; launches of phase
+            # 15's rwkv6_7b steps
+            ("gla_scan_bwd", gla_bwd["rwkv6_7b training"], ssm_train["rwkv6_7b"]["launches"],
+             "gla_scan_bwd", "src/repro/kernels/ssm_scan/kernel.py:76")):
         entries.append({
             "name": kname, "route": "cuda", "case": str(row["case"]),
             "kernel_route": row["route"][0],

@@ -101,7 +101,7 @@ def check(name: str, code: int) -> None:
 
 def refuse_grad(name: str, *tensors) -> None:
     """Raise if autograd would record a call of a kernel that has no
-    backward (``gla_scan``, paged attention; flash has one): an output
+    backward (paged attention; flash and gla_scan have one): an output
     filled through ctypes carries no history, so the gradient would be
     dropped in silence."""
     if torch.is_grad_enabled() and any(

@@ -21,7 +21,18 @@ w (Mamba2's one decay per head), which they then read once per position:
 A route is never chosen because a build or a launch failed; a call that
 neither kernel takes raises before a library is built or loaded.  At the
 prefill shape the kernels' bound is the bytes they must move; see the
-source notes.  No backward yet: a call that autograd would record raises.
+source notes.
+
+The backward (``gla_scan_bwd_cuda``, ``csrc/gla_scan_bwd.cu``) is the
+gradient of the chunked form, what ``ref.gla_scan_bwd_ref`` computes: one
+route, ``simt`` (fp32 FMAs on CUDA cores), for every call the forward takes
+(``bwd_route``).  It recomputes the chunk-start states, and the gradients
+of the states after each chunk, into two fp32 workspaces of (B, H,
+ceil(S / C), K, V) that it allocates here, and uses no atomics, so two
+calls give the same bits.  A call that autograd records goes through
+``GlaScanFn``, whose forward is the forward launch on either route and
+whose backward is the backward launch; any other call is the forward
+launch alone (prefill and its CUDA graphs).
 """
 
 from __future__ import annotations
@@ -44,6 +55,18 @@ _LIBS = {
              [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 16 + [ctypes.c_int, ctypes.c_void_p]),
 }
+_BWD_LIB = ("gla_scan_bwd", "gla_scan_bwd_launch",
+            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+            + [ctypes.c_longlong] * 20 + [ctypes.c_int, ctypes.c_void_p])
+
+
+def _check_kind(name, dtype, K, V, chunk) -> None:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {dtype} not in (float32, bfloat16)")
+    if K not in DIMS or V not in DIMS:
+        raise ValueError(f"{name}: K {K} and V {V} must be in {DIMS}")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"{name}: chunk {chunk} not in [1, {MAX_CHUNK}]")
 
 
 def route(q, k, v, w, chunk: int = 128) -> str:
@@ -52,8 +75,7 @@ def route(q, k, v, w, chunk: int = 128) -> str:
     TypeError or ValueError for a call that neither kernel takes."""
     B, H, S, K = q.shape
     V = v.shape[-1]
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"gla_scan_cuda: dtype {q.dtype} not in (float32, bfloat16)")
+    _check_kind("gla_scan_cuda", q.dtype, K, V, chunk)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("gla_scan_cuda: q, k and v must share a dtype")
     if w.dtype != torch.float32:
@@ -61,10 +83,6 @@ def route(q, k, v, w, chunk: int = 128) -> str:
     if k.shape != q.shape or w.shape != q.shape or v.shape[:3] != q.shape[:3]:
         raise ValueError(f"gla_scan_cuda: bad shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, w {tuple(w.shape)}")
-    if K not in DIMS or V not in DIMS:
-        raise ValueError(f"gla_scan_cuda: K {K} and V {V} must be in {DIMS}")
-    if not 1 <= chunk <= MAX_CHUNK:
-        raise ValueError(f"gla_scan_cuda: chunk {chunk} not in [1, {MAX_CHUNK}]")
     if any(t.stride(-1) != 1 for t in (q, k, v)) or w.stride(-1) not in (0, 1):
         raise ValueError("gla_scan_cuda: the last axis of q, k, v must be "
                          "contiguous and that of w contiguous or broadcast")
@@ -76,10 +94,49 @@ def route(q, k, v, w, chunk: int = 128) -> str:
     return "simt"
 
 
+def bwd_route(dtype: torch.dtype, K: int, V: int, chunk: int = 128) -> str:
+    """The backward kernel a call takes: ``"simt"`` for every call it
+    takes (float32 or bfloat16, K and V in ``DIMS``, chunk in [1,
+    ``MAX_CHUNK``]).  Raises TypeError or ValueError for another."""
+    _check_kind("gla_scan_bwd_cuda", dtype, K, V, chunk)
+    return "simt"
+
+
+class GlaScanFn(torch.autograd.Function):
+    """The scan with a gradient: the forward launch (either route), saving
+    q, k, v and w, and ``gla_scan_bwd_cuda`` as its backward, which takes
+    the final state's gradient when one arrives."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, w, chunk):
+        o, state = gla_scan_fwd_cuda(q, k, v, w, chunk)
+        ctx.save_for_backward(q, k, v, w)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return o, state
+
+    @staticmethod
+    def backward(ctx, do, d_final):
+        q, k, v, w = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros((*q.shape[:3], v.shape[-1]), dtype=q.dtype, device=q.device)
+        dq, dk, dv, dw = gla_scan_bwd_cuda(q, k, v, w, do, d_final, ctx.chunk)
+        return dq, dk, dv, dw, None
+
+
 def gla_scan_cuda(q, k, v, w, chunk: int = 128):
     """q, k, w: (B, H, S, K); v: (B, H, S, V) -> (o (B, H, S, V) in q's
-    dtype, final state (B, H, K, V) fp32), on the card, from a zero state."""
-    _build.refuse_grad("gla_scan_cuda", q, k, v, w)
+    dtype, final state (B, H, K, V) fp32), on the card, from a zero state.
+
+    A call that autograd records (grad enabled and an input that requires
+    it) goes through ``GlaScanFn``; the forward launch is the same."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, w)):
+        return GlaScanFn.apply(q, k, v, w, chunk)
+    return gla_scan_fwd_cuda(q, k, v, w, chunk)
+
+
+def gla_scan_fwd_cuda(q, k, v, w, chunk: int = 128):
+    """The forward launch, on the route ``route`` names."""
     kind = route(q, k, v, w, chunk)
     B, H, S, K = q.shape
     V = v.shape[-1]
@@ -109,3 +166,61 @@ def gla_scan_cuda(q, k, v, w, chunk: int = 128):
 
 gla_scan_cuda.launches = 0
 gla_scan_cuda.launches_by_route = {"mma": 0, "simt": 0}
+
+
+def gla_scan_bwd_cuda(q, k, v, w, do, d_final=None, chunk: int = 128):
+    """(dq, dk, dv, dw) of ``gla_scan_cuda(q, k, v, w, chunk)`` on the card:
+    dq, dk, dv in the inputs' dtype, dw fp32 in w's shape (for a stride-0
+    K axis, one value per element, which autograd's expand sums).
+
+    ``do`` (B, H, S, V) is the output's gradient, in q's dtype, with any
+    strides and a contiguous last axis (else copied); ``d_final`` (B, H, K,
+    V) the final state's, or None for zero.  What ``ref.gla_scan_bwd_ref``
+    computes.  Inputs as the forward takes them, on the route ``bwd_route``
+    names."""
+    name = "gla_scan_bwd_cuda"
+    B, H, S, K = q.shape
+    V = v.shape[-1]
+    kind = bwd_route(q.dtype, K, V, chunk)
+    route(q, k, v, w, chunk)   # the forward's checks of q, k, v and w
+    if not all(t.is_cuda and t.device == q.device for t in (q, k, v, w, do)):
+        raise ValueError(f"{name}: q, k, v, w, do must be on one CUDA device")
+    if do.shape != v.shape or do.dtype != q.dtype:
+        raise ValueError(f"{name}: do {tuple(do.shape)} {do.dtype} must have v's "
+                         f"shape {tuple(v.shape)} and q's dtype {q.dtype}")
+    if d_final is not None and (d_final.shape != (B, H, K, V)
+                                or d_final.device != q.device):
+        raise ValueError(f"{name}: d_final must be (B, H, K, V) = {(B, H, K, V)} "
+                         "on q's device")
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    if d_final is not None:
+        d_final = d_final.float().contiguous()
+    dq = torch.empty((B, H, S, K), dtype=q.dtype, device=q.device)
+    dk = torch.empty_like(dq)
+    dv = torch.empty((B, H, S, V), dtype=q.dtype, device=q.device)
+    dw = torch.empty((B, H, S, K), dtype=torch.float32, device=q.device)
+    if dq.numel() == 0 or dv.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_(), dw.zero_()
+    C = min(chunk, S)
+    n = -(-S // C)
+    states = torch.empty((B, H, n, K, V), dtype=torch.float32, device=q.device)
+    dstates = torch.empty_like(states)
+    lib, symbol, argtypes = _BWD_LIB
+    fn = _build.function(lib, symbol, argtypes)
+    strides = [s for t in (q, k, v, w, do) for s in t.stride()]
+    with torch.cuda.device(q.device):
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                  do.data_ptr(), None if d_final is None else d_final.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                  states.data_ptr(), dstates.data_ptr(), B, H, S, K, V, C,
+                  *strides, int(q.dtype == torch.bfloat16),
+                  torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code)
+    gla_scan_bwd_cuda.launches += 1
+    gla_scan_bwd_cuda.launches_by_route[kind] += 1
+    return dq, dk, dv, dw
+
+
+gla_scan_bwd_cuda.launches = 0
+gla_scan_bwd_cuda.launches_by_route = {"simt": 0}

@@ -16,9 +16,21 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan.kernel import gla_scan_cuda
-from repro_torch.kernels.ssm_scan.ref import gla_scan_ref
+from repro_torch.kernels.ssm_scan.ref import CLAMP, GUARD, gla_scan_ref
 
-CLAMP = 30.0
+
+def clamp_decay(w):
+    """w clamped to [-CLAMP, 0] as ``jnp.clip`` does it (a maximum, then a
+    minimum): the same values as ``clamp``, and at a bound (w == 0 or
+    w == -CLAMP) half the gradient, as ``jax.grad`` gives, where ``clamp``
+    gives all of it."""
+    return torch.minimum(torch.maximum(w, w.new_tensor(-CLAMP)), w.new_tensor(0.0))
+
+
+def guard(a):
+    """The exponent guard ``min(-a, GUARD)`` as ``jnp.minimum``: half the
+    gradient at -a == GUARD, as ``jax.grad`` gives."""
+    return torch.minimum(-a, a.new_tensor(GUARD))
 
 
 def gla_scan_xla(q, k, v, w, chunk: int = 128, init_state=None):
@@ -32,7 +44,7 @@ def gla_scan_xla(q, k, v, w, chunk: int = 128, init_state=None):
     qf = q.float().reshape(B, H, n, C, K)
     kf = k.float().reshape(B, H, n, C, K)
     vf = v.float().reshape(B, H, n, C, V)
-    wf = w.float().clamp(-CLAMP, 0.0).reshape(B, H, n, C, K)
+    wf = clamp_decay(w.float()).reshape(B, H, n, C, K)
     state = init_state
     if state is None:
         state = torch.zeros((B, H, K, V), dtype=torch.float32, device=q.device)
@@ -50,7 +62,7 @@ def gla_scan_xla(q, k, v, w, chunk: int = 128, init_state=None):
         # exp(a_i - a_j), so a chunk whose decay passes 60 loses its local
         # terms (ROADMAP.md, Queue 3).  Copied on purpose: the port is held
         # to the JAX package.
-        k_t = kc * torch.exp(torch.clamp(-a, max=60.0))
+        k_t = kc * torch.exp(guard(a))
         s = torch.einsum("bhik,bhjk->bhij", q_t, k_t)
         s = s.masked_fill(~causal, 0.0)
         intra = torch.einsum("bhij,bhjv->bhiv", s, vc)

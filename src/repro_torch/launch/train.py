@@ -3,14 +3,17 @@
 Selects an architecture config and runs ``Trainer`` steps with DDS
 checkpoints and the deterministic token pipeline, on one device: the card
 unless ``--device cpu``.  ``--reduced`` trains the reduced same-family
-config (CPU-runnable); the default is the architecture at full width.  The
-storage server is sized to hold ``keep`` + 1 checkpoints of the train
+config (CPU-runnable); the default is the architecture at full width, and
+``--layers N`` keeps its first N layers (rwkv6_7b's 32 need about 90 GB
+of bf16 weights and gradients and fp32 moments; 6 fit one 80 GB card).
+The storage server is sized to hold ``keep`` + 1 checkpoints of the train
 state (``{params, mu, nu}``), where the reference's holds 1 GiB.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 from repro_torch.configs import ARCH_IDS, get_config, reduced_config
@@ -45,6 +48,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--reduced", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep this many layers (depth cut; width unchanged)")
     ap.add_argument("--compress-pod-grads", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -53,6 +58,8 @@ def main(argv: list[str] | None = None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     api = build_model(cfg, device)
     print(f"arch={cfg.name} family={cfg.family} "
           f"params~{cfg.param_count() / 1e9:.2f}B device={device}")

@@ -152,14 +152,24 @@ def _groups(params, cfg):
     return L.layer_views(params["groups"], n_groups)
 
 
-def hybrid_forward(params, cfg: ModelConfig, tokens, embeds=None):
+def hybrid_forward(params, cfg: ModelConfig, tokens, embeds=None,
+                   remat: bool = True):
+    """The training forward: (logits, aux).  With ``remat`` each group (its
+    Mamba blocks and the shared attention block) goes through
+    ``layers.maybe_remat`` at ``cfg.remat`` and the tail does not, as in
+    the reference."""
     B, S = tokens.shape
     x = L.embed_fwd(params["embedding"], tokens)
     pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    sp = params["shared_attn"]
-    for grp in _groups(params, cfg):
+
+    def group_body(x, grp, sp):
         x, _ = _mamba_stack(cfg, grp, cfg.attn_every, x)
-        x, _ = _shared_attn_fwd(cfg, sp, x, pos)
+        return _shared_attn_fwd(cfg, sp, x, pos)[0]
+
+    if remat:
+        group_body = L.maybe_remat(group_body, cfg.remat)
+    for grp in _groups(params, cfg):
+        x = group_body(x, grp, params["shared_attn"])
     if "tail" in params:
         x, _ = _mamba_stack(cfg, params["tail"], _split_layers(cfg)[1], x)
     x = L.rms_norm(x, params["final_norm"])

@@ -10,7 +10,7 @@ layers' outputs and returned, as in JAX (nothing is written in place).
 Entry points:
   init_rwkv_lm(cfg, generator, device)             -> (params, axes)
   rwkv_init_state(cfg, batch, ...)                 -> state tuple
-  rwkv_forward(params, cfg, tokens)                -> (logits, aux)  (forward only)
+  rwkv_forward(params, cfg, tokens, remat=True)    -> (logits, aux)
   rwkv_prefill(params, cfg, tokens)                -> (last logits, state)
   rwkv_decode_step(params, cfg, state, kv_len, token) -> (logits, state)
 """
@@ -105,10 +105,22 @@ def _run(params, cfg, x, state, decode):
     return x, tuple(torch.stack(s) for s in zip(*new))
 
 
-def rwkv_forward(params, cfg: ModelConfig, tokens, embeds=None):
+def rwkv_forward(params, cfg: ModelConfig, tokens, embeds=None,
+                 remat: bool = True):
+    """The training forward: (logits, aux).  With ``remat`` each block goes
+    through ``layers.maybe_remat`` at ``cfg.remat``, as the reference's
+    rematerialized scan body: the backward runs the block again from its
+    input (a second ``gla_scan`` a layer)."""
     x = L.embed_fwd(params["embedding"], tokens)
     state = rwkv_init_state(cfg, tokens.shape[0], device=tokens.device)
-    x, _ = _run(params, cfg, x, state, decode=False)
+
+    def body(x, blk, *carry):
+        return _block(cfg, blk, x, carry, decode=False)[0]
+
+    if remat:
+        body = L.maybe_remat(body, cfg.remat)
+    for i, blk in enumerate(L.layer_views(params["blocks"], cfg.num_layers)):
+        x = body(x, blk, *(s[i] for s in state))
     x = L.rms_norm(x, params["final_norm"])
     return (L.unembed_fwd(params["embedding"], x),
             torch.zeros((), device=x.device))

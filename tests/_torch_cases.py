@@ -186,6 +186,20 @@ def gla_inputs(case, seed=4):
     return q, k, v, w.astype(np.float32)
 
 
+def gla_exact_bound_inputs(seed=0):
+    """B 1, H 2, S 64, K = V = 16, chunk 32: every 7th position's w exactly
+    0, w exactly -30 at one position and below it at another, and one key
+    column whose w of -1.875 brings -a to exactly 60 at a chunk's last row
+    (32 x 1.875, exact in fp32)."""
+    case = (1, 2, 64, 16, 16, 32)
+    q, k, v, w = gla_inputs(case, seed=seed)
+    w[:, :, ::7] = 0.0
+    w[:, :, 40, 2] = -30.0
+    w[:, :, 45, 3] = -41.0
+    w[:, 0, 0:32, 1] = -1.875
+    return case, (q, k, v, w)
+
+
 def gla_mma_inputs(case, seed=11):
     """q, k (x0.5), v as (B, S, H, 64) float32 and w as (B, S, H, 64), or
     (B, S, H, 1) for the "mamba2" decay (one per head), drawn as

@@ -5,7 +5,9 @@ bf16 calls with K = V = 64, ``C = min(chunk, S)`` a multiple of 16 and
 16-byte aligned q/k/v whose B/H/S strides are multiples of 8 elements take
 the tensor-core kernel (``mma``); every other call the CUDA-core kernel
 (``simt``); a call neither takes raises before a kernel library is built or
-loaded.  The kernels themselves are held against ``gla_scan_xla`` on a card
+loaded.  The backward has one route (``simt``) for every call it takes
+(``bwd_route``), and a call autograd records goes through ``GlaScanFn``.
+The kernels themselves are held against ``gla_scan_xla`` on a card
 by ``test_torch_kernels_gpu.py``.  Here a torch emulation of the mma
 kernel's roundings (bf16 hi/lo splits of every fp32-derived operand, fp32
 accumulation) is held against ``gla_scan_xla`` within a quarter of the
@@ -205,20 +207,88 @@ def test_unsplit_keys_put_the_state_outside_its_tolerance(decay):
 
 
 def test_autograd_guard_raises_before_the_device_check(monkeypatch):
-    """The kernels have no backward: a call autograd would record raises
-    before the device check (for q, k, v or w), so a CPU tensor shows it;
-    under no_grad or inference_mode the same call passes the guard and
-    meets the device check.  No library is built or loaded either way."""
+    """The kernels have a backward now: a call that autograd records (q, k,
+    v or w requiring grad) goes through ``GlaScanFn`` and meets the
+    forward's device check there, and under no_grad or inference_mode the
+    same call meets it directly.  No library is built or loaded either
+    way."""
     def no_build(*args, **kwargs):
         raise AssertionError("a kernel library was requested")
 
     monkeypatch.setattr(_build, "function", no_build)
     monkeypatch.setattr(_build, "build", no_build)
+    entered = []
+    real = K.GlaScanFn.forward
+
+    def forward(ctx, *args):
+        entered.append(1)
+        return real(ctx, *args)
+
+    monkeypatch.setattr(K.GlaScanFn, "forward", staticmethod(forward))
     for i in range(4):
         args = list(_qkvw(S=64))
         args[i] = args[i].clone().requires_grad_()
-        with pytest.raises(RuntimeError, match="no backward"):
+        entered.clear()
+        with pytest.raises(ValueError, match="CUDA device"):
             K.gla_scan_cuda(*args, 64)
+        assert entered == [1]
         for context in (torch.no_grad, torch.inference_mode):
+            entered.clear()
             with context(), pytest.raises(ValueError, match="CUDA device"):
                 K.gla_scan_cuda(*args, 64)
+            assert entered == []
+
+
+# ---------------------------------------------------------------------------
+# The backward's route rule.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,Kd,V,chunk", [
+    (torch.bfloat16, 64, 64, 128),      # RWKV6 and Mamba2 at full width
+    (torch.bfloat16, 64, 64, 37),
+    (torch.float32, 32, 32, 128),
+    (torch.float32, 16, 128, 1),
+    (torch.bfloat16, 128, 16, 128),
+])
+def test_bwd_route_rule(dtype, Kd, V, chunk):
+    """Every call the backward takes goes to the CUDA-core kernel."""
+    assert K.bwd_route(dtype, Kd, V, chunk) == "simt"
+
+
+@pytest.mark.parametrize("dtype,Kd,V,chunk,error", [
+    (torch.float16, 64, 64, 128, TypeError),
+    (torch.float64, 64, 64, 128, TypeError),
+    (torch.bfloat16, 48, 64, 128, ValueError),
+    (torch.bfloat16, 64, 256, 128, ValueError),
+    (torch.bfloat16, 64, 64, 0, ValueError),
+    (torch.bfloat16, 64, 64, 129, ValueError),
+])
+def test_bwd_unsupported_call_raises_before_any_library(dtype, Kd, V, chunk, error,
+                                                        monkeypatch):
+    def no_build(*args, **kwargs):
+        raise AssertionError("a kernel library was requested")
+
+    monkeypatch.setattr(_build, "function", no_build)
+    monkeypatch.setattr(_build, "build", no_build)
+    with pytest.raises(error, match="gla_scan_bwd_cuda"):
+        K.bwd_route(dtype, Kd, V, chunk)
+    q, k, v, w = _qkvw(S=64, Kd=Kd, V=V, dtype=dtype)
+    launches = K.gla_scan_bwd_cuda.launches
+    with pytest.raises(error, match="gla_scan_bwd_cuda"):
+        K.gla_scan_bwd_cuda(q, k, v, w, torch.zeros_like(v), None, chunk)
+    assert K.gla_scan_bwd_cuda.launches == launches
+
+
+def test_bwd_call_on_the_cpu_raises_before_any_library(monkeypatch):
+    """A call the backward takes, with CPU tensors, meets the device check
+    before a library is built or loaded."""
+    def no_build(*args, **kwargs):
+        raise AssertionError("a kernel library was requested")
+
+    monkeypatch.setattr(_build, "function", no_build)
+    monkeypatch.setattr(_build, "build", no_build)
+    q, k, v, w = _qkvw(S=64)
+    with pytest.raises(ValueError, match="CUDA device"):
+        K.gla_scan_bwd_cuda(q, k, v, w, torch.zeros_like(v), None, 64)
+    assert set(K.gla_scan_bwd_cuda.launches_by_route) == {"simt"}

@@ -9,7 +9,8 @@ Inputs and tolerances are those of ``test_torch_kernels.py`` and
 for bf16 on attention; four times that on the GLA scan's output and 1e-3
 on its final state, as the JAX package's GLA tests.  The flash backward's
 gradients vary in scale, so its tolerances (the same 2e-5 and 2e-2) are
-relative to the largest |gradient| of each output.
+relative to the largest |gradient| of each output; so are the GLA
+backward's (1e-4 in fp32, 2e-2 in bf16) against ``gla_scan_bwd_ref``.
 """
 
 import numpy as np
@@ -19,7 +20,8 @@ import torch
 from _torch_cases import (FA_BWD_CASES, FA_CASES, FA_GEMMA_CASES, FA_MOE_CASES,
                           FA_VLM_CASES, GLA_CASES, GLA_MMA_CASES,
                           PA_CASES, PA_SPLIT_CASES, TOL, fa_bwd_inputs, fa_inputs,
-                          gla_inputs, gla_mma_inputs, pa_inputs, pa_split_inputs)
+                          gla_exact_bound_inputs, gla_inputs, gla_mma_inputs,
+                          pa_inputs, pa_split_inputs)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.kernel import (bwd_route,
                                                         flash_attention_bwd_cuda,
@@ -29,8 +31,9 @@ from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention
 from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.ssm_scan import gla_scan
-from repro_torch.kernels.ssm_scan.kernel import gla_scan_cuda
+from repro_torch.kernels.ssm_scan.kernel import gla_scan_bwd_cuda, gla_scan_cuda
 from repro_torch.kernels.ssm_scan.ops import gla_scan_xla
+from repro_torch.kernels.ssm_scan.ref import gla_scan_bwd_ref
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -502,3 +505,124 @@ def test_gla_scan_dispatcher_launches_the_kernel(cuda_device):
     before = gla_scan_cuda.launches
     gla_scan(q, k, v, w, chunk=32)
     assert gla_scan_cuda.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# The GLA scan's backward.
+# ---------------------------------------------------------------------------
+
+GLA_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# GLA_CASES, a ragged S (200 over chunks of 64, and over 128), one chunk
+# longer than S, and V 128 (two V tiles) with K 128 (two K tiles).
+GLA_BWD_CASES = GLA_CASES + [(2, 2, 200, 64, 64, 64), (1, 3, 200, 64, 64, 128),
+                             (1, 2, 37, 32, 16, 128), (1, 2, 150, 128, 128, 64)]
+
+
+def _gla_bwd_inputs(case, dtype, device, seed=4):
+    q, k, v, w = gla_inputs(case, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    do = rng.standard_normal(v.shape, np.float32)
+    d_final = rng.standard_normal((*q.shape[:2], q.shape[3], v.shape[3]), np.float32)
+    return ([_on(a, device, dtype) for a in (q, k, v)] + [_on(w, device)]
+            + [_on(do, device, dtype), _on(d_final, device)])
+
+
+def _gla_bwd_close(got, ref, dtype):
+    assert [g.dtype for g in got] == [ref[0].dtype] * 3 + [torch.float32]
+    for name, g, r in zip(("dq", "dk", "dv", "dw"), got, ref):
+        assert g.shape == r.shape and torch.isfinite(g.float()).all(), name
+        err = ((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+        assert err <= GLA_BWD_TOL[dtype], f"{name}: {err:.3e} of max |grad|"
+
+
+def _gla_bwd_counted(*args):
+    before = gla_scan_bwd_cuda.launches_by_route["simt"]
+    got = gla_scan_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert gla_scan_bwd_cuda.launches_by_route["simt"] == before + 1
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GLA_BWD_CASES)
+def test_gla_scan_bwd_cuda_matches_plain(case, dtype, cuda_device):
+    chunk = case[-1]
+    q, k, v, w, do, d_final = _gla_bwd_inputs(case, dtype, cuda_device)
+    for df in (d_final, None):
+        got = _gla_bwd_counted(q, k, v, w, do, df, chunk)
+        _gla_bwd_close(got, gla_scan_bwd_ref(q, k, v, w, do, df, chunk), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gla_scan_bwd_cuda_models_layouts(dtype, cuda_device):
+    """q/k/v and dO as head-transposed views of (B, S, H, *) and Mamba2's
+    per-head decay broadcast over K with stride 0, at a ragged S."""
+    B, S, H, Kd, V = 2, 150, 3, 32, 64
+    rng = np.random.default_rng(9)
+    q, k = (_on(rng.standard_normal((B, S, H, Kd), np.float32) * 0.5, cuda_device,
+                dtype).transpose(1, 2) for _ in range(2))
+    v, do = (_on(rng.standard_normal((B, S, H, V), np.float32), cuda_device,
+                 dtype).transpose(1, 2) for _ in range(2))
+    dt = _on(-0.05 * np.exp(rng.standard_normal((B, S, H), np.float32)), cuda_device)
+    w = dt.transpose(1, 2)[..., None].expand(B, H, S, Kd)
+    assert w.stride(-1) == 0 and not q.is_contiguous() and not do.is_contiguous()
+    got = _gla_bwd_counted(q, k, v, w, do, None, 64)
+    _gla_bwd_close(got, gla_scan_bwd_ref(q, k, v, w, do, None, 64), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decay", ["strong", "exact bounds"])
+def test_gla_scan_bwd_cuda_guard_and_clip_ties(decay, cuda_device):
+    """w = -2.5 (the guard saturates), and w at the exact bounds of the clip
+    and the guard (half derivatives), in fp32."""
+    if decay == "strong":
+        case = (1, 2, 256, 32, 32, 128)
+        q, k, v, w = gla_inputs(case, seed=7)
+        w = np.full(q.shape, -2.5, np.float32)
+    else:
+        case, (q, k, v, w) = gla_exact_bound_inputs()
+    rng = np.random.default_rng(1)
+    do = rng.standard_normal(v.shape, np.float32)
+    args = [_on(a, cuda_device) for a in (q, k, v, w, do)]
+    got = _gla_bwd_counted(*args, None, case[-1])
+    _gla_bwd_close(got, gla_scan_bwd_ref(*args, None, case[-1]), "float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gla_scan_bwd_cuda_is_deterministic(dtype, cuda_device):
+    case = (2, 4, 300, 64, 64, 128)
+    args = _gla_bwd_inputs(case, dtype, cuda_device)
+    a = gla_scan_bwd_cuda(*args, 128)
+    b = gla_scan_bwd_cuda(*args, 128)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,route", [("float32", "simt"), ("bfloat16", "mma")])
+def test_gla_scan_autograd_goes_through_the_kernels(dtype, route, cuda_device):
+    """The dispatcher's cuda path under autograd (``GlaScanFn``): one
+    forward launch on its route and one backward launch, gradients of o and
+    the final state as autograd of the plain path gives them, with Mamba2's
+    stride-0 w, whose gradient autograd sums over K."""
+    case = (2, 4, 256, 64, 64, 128)
+    q, k, v, w, do, d_final = _gla_bwd_inputs(case, dtype, cuda_device)
+    w1 = w[..., :1].clone()
+    grads = {}
+    for name, fn in (("kernel", gla_scan), ("plain", gla_scan_xla)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, w1)]
+        fwd, bwd = gla_scan_cuda.launches_by_route[route], gla_scan_bwd_cuda.launches
+        o, s = fn(*leaves[:3], leaves[3].expand(w.shape), chunk=128)
+        torch.autograd.backward((o, s), (do, d_final))
+        torch.cuda.synchronize()
+        if name == "kernel":
+            assert (gla_scan_cuda.launches_by_route[route] - fwd,
+                    gla_scan_bwd_cuda.launches - bwd) == (1, 1)
+        grads[name] = [t.grad for t in leaves]
+    _gla_bwd_close(grads["kernel"], grads["plain"], dtype)
+    before = gla_scan_bwd_cuda.launches
+    with torch.no_grad():
+        gla_scan(q, k, v, w, chunk=128)
+    assert gla_scan_bwd_cuda.launches == before

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import GLA_CASES, TOL, gla_inputs
+from _torch_cases import GLA_CASES, TOL, gla_exact_bound_inputs, gla_inputs
 from repro.kernels.ssm_scan.kernel import gla_scan_pallas as jax_gla_pallas
 from repro.kernels.ssm_scan.ops import gla_scan_xla as jax_gla_xla
 from repro.kernels.ssm_scan.ref import gla_decode_step as jax_decode_step
@@ -158,3 +158,34 @@ def test_gla_xla_gradients_match_jax(case):
         for t, j in zip(leaves, j_grads):
             np.testing.assert_allclose(_np(t.grad), np.asarray(j), atol=5e-3,
                                        rtol=5e-3)
+
+
+def test_gla_xla_gradients_at_the_exact_bounds_match_jax(monkeypatch):
+    """w exactly 0 and -30 and -a reaching 60 exactly (``gla_exact_bound_inputs``): autograd of the port's
+    chunked path gives jax.grad's half derivative at each tie, within the
+    5e-3 of the test above; the former ``clamp`` forms give all of it and
+    miss.  The forward is the same bits either way."""
+    import jax
+
+    from repro_torch.kernels.ssm_scan import ops
+
+    case, arrays = gla_exact_bound_inputs()
+    chunk = case[-1]
+    j_grads = jax.grad(
+        lambda *a: jnp.sum(jnp.square(jax_gla_xla(*a, chunk=chunk)[0])),
+        argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in arrays))
+
+    def run():
+        leaves = [torch.from_numpy(a).requires_grad_() for a in arrays]
+        o, s = gla_scan_xla(*leaves, chunk=chunk)
+        o.square().sum().backward()
+        return o.detach(), s.detach(), [t.grad for t in leaves]
+
+    o, s, grads = run()
+    for t, j in zip(grads, j_grads):
+        np.testing.assert_allclose(_np(t), np.asarray(j), atol=5e-3, rtol=5e-3)
+    monkeypatch.setattr(ops, "clamp_decay", lambda w: w.clamp(-ops.CLAMP, 0.0))
+    monkeypatch.setattr(ops, "guard", lambda a: torch.clamp(-a, max=ops.GUARD))
+    o_old, s_old, old = run()
+    assert torch.equal(o, o_old) and torch.equal(s, s_old)
+    assert np.abs(_np(old[3]) - np.asarray(j_grads[3])).max() > 1.0

@@ -3,8 +3,9 @@ package's on the CPU.
 
 Gradients: ``value_and_grad`` of the registry loss on reduced TinyLlama,
 granite-MoE (with its load-balance loss), qwen2_vl (with an embeds
-prefix) and gemma3 (local:global with a tail: the remat of its groups and
-tail) against ``jax.value_and_grad(api.loss_fn)``, on JAX-initialised
+prefix), gemma3 (local:global with a tail: the remat of its groups and
+tail), RWKV6 and Zamba2 (5 Mamba2 layers: two groups of 2 with the shared
+attention block, and a tail of 1) against ``jax.value_and_grad(api.loss_fn)``, on JAX-initialised
 parameters cast to float32 (``interop.to_torch``), so the only differences
 are summation order and fp32 transcendental rounding.  Tolerances: the
 loss 1e-5 relative; each gradient leaf 1e-4 of its largest |value| (the
@@ -16,8 +17,9 @@ and grad norms (started from the same fp32 parameters) within 1e-4
 relative: Adam divides by sqrt(v), so a gradient element near zero turns
 a last-digit difference into a visible one, and the steps carry it on.
 
-Also: remat recomputes every layer in the backward (the attention calls
-counted) and leaves the gradients bit for bit; a port of
+Also: remat recomputes every layer in the backward (the attention and
+gla_scan calls counted; Zamba2's tail is not rematerialized, as in the
+reference) and leaves the gradients bit for bit; a port of
 ``test_tinyllama_short_training_descends``; the reference's
 ``compress_pod_grads=True`` step raising (ROADMAP.md, Queue 3) and the
 port's step equal to the reference's pieces composed by hand; and a run
@@ -51,6 +53,7 @@ from repro_torch.core.dds_server import DDSStorageServer, ServerConfig
 from repro_torch.data.pipeline import BatchSpec, TokenPipeline
 from repro_torch.interop import to_torch
 from repro_torch.models import layers as TL
+from repro_torch.models import ssm as SSM
 from repro_torch.models.registry import build_model
 from repro_torch.optim import AdamWState
 from repro_torch.optim.compression import CompressionState
@@ -66,7 +69,9 @@ B, S = 2, 16
 ARCHS = {"tinyllama_1p1b": dict(num_layers=2),
          "granite_moe_3b_a800m": dict(num_layers=2),
          "qwen2_vl_72b": dict(num_layers=2),
-         "gemma3_4b": dict(num_layers=5, group_size=2, window=6)}
+         "gemma3_4b": dict(num_layers=5, group_size=2, window=6),
+         "rwkv6_7b": dict(num_layers=2),
+         "zamba2_1p2b": dict()}
 
 
 def _cfgs(arch, **more):
@@ -123,37 +128,86 @@ def test_loss_and_every_gradient_leaf_match_jax(model):
     _grads_close(grads, jgrads)
 
 
+def test_zamba2_gradients_through_a_live_scan_match_jax():
+    """Mamba2's short-conv weights start at zero (the reference's init), so
+    at init the scan's x, v and output are zero and every gradient through
+    it is exactly zero.  With seeded conv weights the scan's inputs get
+    gradients (in_bc, in_xz, in_dt, A_log all nonzero), held to JAX as
+    above."""
+    cfg, jcfg = _cfgs("zamba2_1p2b")
+    jparams = _fp32_params(jcfg)
+    rng = np.random.default_rng(0)
+    for part in ("groups", "tail"):
+        conv = jparams[part]["mamba"]["conv"]
+        jparams[part]["mamba"]["conv"] = jnp.asarray(
+            0.3 * rng.standard_normal(conv.shape), jnp.float32)
+    tparams = to_torch(jax.device_get(jparams), device=CPU)
+    batch = _batch(cfg)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jax_build_model(jcfg).loss_fn(
+            p, {k: jnp.asarray(v) for k, v in batch.items()})[0])(jparams)
+    loss, grads = value_and_grad(build_model(cfg, CPU), tparams,
+                                 {k: torch.from_numpy(v) for k, v in batch.items()})
+    for name in ("in_bc", "in_xz", "in_dt", "A_log"):
+        assert grads["groups"]["mamba"][name].abs().amax() > 0, name
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    _grads_close(grads, jgrads)
+
+
+def _calls(cfg, remat):
+    """(flash, gla_scan) calls of one forward and backward: a rematerialized
+    layer runs its kernel twice, another once."""
+    n = 2 if remat else 1
+    if cfg.family == "ssm":
+        return 0, n * cfg.num_layers
+    if cfg.family == "hybrid":
+        groups = cfg.num_layers // cfg.attn_every
+        return n * groups, n * groups * cfg.attn_every + cfg.num_layers % cfg.attn_every
+    return n * cfg.num_layers, 0
+
+
 def test_remat_recomputes_each_layer_and_keeps_the_gradients(model, monkeypatch):
-    """With remat the backward runs every layer's attention again (2 calls
-    a layer in all, 1 without), and the gradients are the same bits."""
+    """With remat the backward runs every rematerialized layer's attention
+    and gla_scan again (2 calls a layer in all, 1 without), and the
+    gradients are the same bits."""
     cfg, _, _, tparams = model
     api = build_model(cfg, CPU)
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
-    calls = []
-    real = TL.flash_attention
+    calls = {"flash": [], "gla": []}
 
-    def counting(*args, **kw):
-        calls.append(1)
-        return real(*args, **kw)
+    def counting(name, real):
+        def fn(*args, **kw):
+            calls[name].append(1)
+            return real(*args, **kw)
+        return fn
 
-    monkeypatch.setattr(TL, "flash_attention", counting)
+    monkeypatch.setattr(TL, "flash_attention", counting("flash", TL.flash_attention))
+    monkeypatch.setattr(SSM, "gla_scan", counting("gla", SSM.gla_scan))
     out = {}
     for remat in (True, False):
-        calls.clear()
+        for c in calls.values():
+            c.clear()
         api_r = dataclasses.replace(
             api, loss_fn=lambda p, b, r=remat: _loss(cfg, p, b, r))
         out[remat] = value_and_grad(api_r, tparams, batch)
-        assert len(calls) == cfg.num_layers * (2 if remat else 1)
+        assert (len(calls["flash"]), len(calls["gla"])) == _calls(cfg, remat)
     assert torch.equal(out[True][0], out[False][0])
     for (_, a), (_, b) in zip(leaf_paths(out[True][1]), leaf_paths(out[False][1])):
         assert torch.equal(a, b)
 
 
 def _loss(cfg, params, batch, remat):
+    from repro_torch.models import hybrid as HY
+    from repro_torch.models import ssm_stack as SS
     from repro_torch.models import transformer as TF
     from repro_torch.models.registry import cross_entropy
-    logits, aux = TF.lm_forward(params, cfg, batch["tokens"],
-                                embeds=batch.get("embeds"), remat=remat)
+    if cfg.family == "ssm":
+        logits, aux = SS.rwkv_forward(params, cfg, batch["tokens"], remat=remat)
+    elif cfg.family == "hybrid":
+        logits, aux = HY.hybrid_forward(params, cfg, batch["tokens"], remat=remat)
+    else:
+        logits, aux = TF.lm_forward(params, cfg, batch["tokens"],
+                                    embeds=batch.get("embeds"), remat=remat)
     return cross_entropy(logits, batch["labels"]) + 0.01 * aux, {}
 
 
@@ -320,3 +374,15 @@ def test_resumed_run_equals_uninterrupted_run():
     resumed = second.run(2)
     assert [h["step"] for h in resumed] == [2, 3]
     assert [h["loss"] for h in straight[2:]] == [h["loss"] for h in resumed]
+
+
+def test_train_launcher_cuts_depth(capsys):
+    """``launch.train --layers N`` (rwkv6_7b at full depth does not fit one
+    80 GB card for training) takes its steps."""
+    from repro_torch.launch import train as launch_train
+
+    launch_train.main(["--arch", "rwkv6_7b", "--reduced", "--layers", "1",
+                       "--device", "cpu", "--steps", "2", "--seq", "32",
+                       "--batch", "2"])
+    out = capsys.readouterr().out
+    assert "arch=rwkv6_7b" in out and "2 steps" in out
