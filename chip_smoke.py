@@ -6,15 +6,15 @@
 Phases, each of which exits non-zero on failure:
   1. setup: the card's name and power limit, torch and CUDA versions, TF32
      off for matmuls and cuDNN;
-  2. build the nine CUDA libraries from src/repro_torch/csrc (one nvcc
+  2. build the ten CUDA libraries from src/repro_torch/csrc (one nvcc
      each, all started together) into build/torch_kernels/, count the
      tensor-core instructions in the SASS of the bf16 flash library (HGMMA,
      also in its D 320 instance alone), of the tensor-core flash backward's
      D 64 and D 128 instances (HGMMA, with ptxas's registers and spills of
-     each) and of the bf16 gla_scan library (HMMA), and print ptxas's
-     registers and spills of both flash libraries' D 320 instances and of
-     the gla_scan backward's kernels (with its most registers and spills
-     over all 54 instances);
+     each) and of the bf16 gla_scan forward and backward libraries (HMMA),
+     and print ptxas's registers and spills of both flash libraries' D 320
+     instances and of both gla_scan backwards' kernels (the CUDA-core one
+     with its most registers and spills over all 54 instances);
   3. each kernel against its plain PyTorch version at the main paths'
      shapes (flash and paged also at granite-MoE's, DBRX's and
      qwen2_vl_72b's heads, the last from generators of their own):
@@ -41,9 +41,12 @@ Phases, each of which exits non-zero on failure:
      kernel's time and error beside them; the gla_scan backward against
      gla_scan_bwd_ref at RWKV6's training shape (B 8, H 64, S 2048, K = V
      = 64, bf16), Zamba2's (one decay per head, stride-0 w), a ragged S,
-     strong decay and fp32 at K = V = 32: max |err| over the largest
-     |gradient| beside the tolerance, two calls bit-equal, kernel, plain and
-     bound times (no library time); then reduced TinyLlama, granite-MoE, DBRX, qwen2_vl_72b (with an embeds
+     strong decay (these four on the tensor cores) and fp32 at K = V = 32
+     (on CUDA cores), each on the route the backward's rule names: max
+     |err| over the largest |gradient| beside the tolerance, two calls
+     bit-equal, kernel, plain and bound times (no library time), and on the
+     tensor-core rows the CUDA-core kernel's time and error beside them;
+     then reduced TinyLlama, granite-MoE, DBRX, qwen2_vl_72b (with an embeds
      prefix), RWKV6, Zamba2, SeamlessM4T and gemma3_4b (with a tail)
      models on the card (the kernels) held against the CPU path (their
      plain versions) in fp32, for the MoE family with its load-balance loss
@@ -126,9 +129,9 @@ Phases, each of which exits non-zero on failure:
      in_bc, in_xz, in_dt, A_log) and the global norm through the kernels
      held against the plain GLA path on the card (two planted faults of
      the backward must fail that limit), then 10 Trainer steps (loss, grad
-     norm, ms, peak memory, launches by route a step: RWKV6 12 forward on
-     mma and 6 backward on simt; Zamba2 74 and 38, with flash 12 forward
-     and 6 backward on wgmma) and one profiled step (device busy and idle
+     norm, ms, peak memory, launches by route a step: RWKV6 12 forward and
+     6 backward on mma; Zamba2 74 and 38, with flash 12 forward and 6
+     backward on wgmma) and one profiled step (device busy and idle
      share, largest items, the gla_scan backward's share).
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
@@ -160,8 +163,9 @@ PORT_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_kernel",
                 "flash_bwd_delta_kernel", "flash_bwd_wgmma_dkdv_kernel",
                 "flash_bwd_wgmma_dq_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
                 "paged_attention_split_kernel", "paged_attention_kernel",
-                "gla_scan_mma_kernel", "gla_scan_kernel", "gla_bwd_scan_kernel",
-                "gla_bwd_dqk_kernel", "gla_bwd_dv_kernel")
+                "gla_scan_mma_kernel", "gla_scan_kernel", "gla_bwd_mma_states_kernel",
+                "gla_bwd_mma_kernel", "gla_bwd_scan_kernel", "gla_bwd_dqk_kernel",
+                "gla_bwd_dv_kernel")
 # The route every bf16 prefill launch of a kernel must take.
 PREFILL_ROUTES = {"flash_attention": "wgmma", "gla_scan": "mma"}
 TOL_BF16 = 2e-2                 # kernel vs plain version, bf16 in and out
@@ -330,16 +334,17 @@ TOL_TRAIN_GRADS = 0.05
 # whole batch against the fp32 sum of two half batches' bf16 gradients.
 # An H100 measured 0.0031252 at seed 0; this allows 3.5 times that.
 TOL_TRAIN_MICRO = 0.011
-# B, H, S, K, V, dtype name, decay, with the final state's gradient, use:
-# the gla_scan backward's cases of phase 3 (chunk 128): RWKV6's training
-# call (phase 15: no final-state gradient), Zamba2's Mamba2 call (one decay
-# per head, broadcast over K with stride 0), a ragged S, strong decay (w =
-# -2.5: the guard saturates) and fp32 at K = V = 32.
-GLA_BWD = [(8, 64, 2048, 64, 64, "bfloat16", "rwkv6", False, "rwkv6_7b training"),
-           (8, 64, 2048, 64, 64, "bfloat16", "mamba2", True, "zamba2_1p2b training"),
-           (8, 64, 2000, 64, 64, "bfloat16", "rwkv6", True, "ragged S 2000"),
-           (8, 64, 2048, 64, 64, "bfloat16", "strong", True, "strong decay"),
-           (8, 64, 2048, 32, 32, "float32", "rwkv6", True, "fp32")]
+# B, H, S, K, V, dtype name, decay, with the final state's gradient, route,
+# use: the gla_scan backward's cases of phase 3 (chunk 128): RWKV6's
+# training call (phase 15: no final-state gradient), Zamba2's Mamba2 call
+# (one decay per head, broadcast over K with stride 0), a ragged S, strong
+# decay (w = -2.5: the guard saturates), all on the tensor cores, and fp32
+# at K = V = 32 on CUDA cores.
+GLA_BWD = [(8, 64, 2048, 64, 64, "bfloat16", "rwkv6", False, "mma", "rwkv6_7b training"),
+           (8, 64, 2048, 64, 64, "bfloat16", "mamba2", True, "mma", "zamba2_1p2b training"),
+           (8, 64, 2000, 64, 64, "bfloat16", "rwkv6", True, "mma", "ragged S 2000"),
+           (8, 64, 2048, 64, 64, "bfloat16", "strong", True, "mma", "strong decay"),
+           (8, 64, 2048, 32, 32, "float32", "rwkv6", True, "simt", "fp32")]
 # The gla_scan backward against gla_scan_bwd_ref, max |err| over the largest
 # |gradient| (as TOL_BWD): bf16 one rounding of each gradient, fp32
 # summation order.
@@ -586,9 +591,18 @@ def check_bwd_sass(report: dict) -> None:
 
 
 def gla_bwd_ptxas(report: dict) -> None:
-    """ptxas's registers and spills of the gla_scan backward: each kernel's
-    bf16 instance at K = V = 64 (the models' calls), and the most registers
-    and the spill stores over all its instances."""
+    """ptxas's registers and spills of the gla_scan backwards: the
+    tensor-core library's two kernels, the CUDA-core library's bf16
+    instance of each kernel at K = V = 64, and the most registers and the
+    spill stores over all its instances."""
+    lib = "gla_scan_bwd_mma"
+    if lib in report:
+        for label, marker in (("states", "gla_bwd_mma_states_kernel"),
+                              ("gradients", "gla_bwd_mma_kernel")):
+            log(f"ptxas -v, {lib} {label}: "
+                + "; ".join(ptxas_lines(report[lib]["ptxas"], marker)))
+    else:
+        log(f"ptxas -v, {lib}: built before this run, no ptxas output")
     lib = "gla_scan_bwd"
     if lib not in report:
         log(f"ptxas -v, {lib}: built before this run, no ptxas output")
@@ -872,18 +886,46 @@ def gla_bwd_work(q, v, w, chunk: int, with_final: bool) -> tuple[int, int]:
     return nbytes, B * H * flops
 
 
+def gla_bwd_simt(q, k, v, w, do, d_final, chunk: int = 128):
+    """The CUDA-core gla_scan backward (the simt route, the only one before
+    the mma route) launched through its C entry point on a call the rule
+    sends to the mma route, for timing beside it in the same run."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssm_scan import kernel as K
+
+    lib, symbol, argtypes = K._BWD_LIBS["simt"]
+    B, H, S, Kd = q.shape
+    V = v.shape[-1]
+    C = min(chunk, S)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dw = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    states = torch.empty((B, H, -(-S // C), Kd, V), dtype=torch.float32, device=q.device)
+    dstates = torch.empty_like(states)
+    strides = [s for t in (q, k, v, w, do) for s in t.stride()]
+    code = _build.function(lib, symbol, argtypes)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), do.data_ptr(),
+        None if d_final is None else d_final.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dw.data_ptr(), states.data_ptr(), dstates.data_ptr(), B, H, S,
+        Kd, V, C, *strides, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code)
+    return dq, dk, dv, dw
+
+
 def check_gla_bwd(timer, seed) -> dict:
     """The gla_scan backward kernel against ``gla_scan_bwd_ref`` at
-    ``GLA_BWD``'s shapes, from a generator of its own: the error beside its
-    tolerance, two calls bit-equal, kernel, plain and bound times (the
-    bound's two parts named).  No single PyTorch call computes the scan's
-    gradient, so there is no library time.  Returns the rows by use."""
+    ``GLA_BWD``'s shapes, from a generator of its own: the route the rule
+    names asserted, the error beside its tolerance (and dw's alone), two
+    calls bit-equal, kernel, plain and bound times (the bound's two parts
+    named), and on the mma rows the CUDA-core kernel's time and error
+    beside them.  No single PyTorch call computes the scan's gradient, so
+    there is no library time.  Returns the rows by use."""
     from repro_torch.kernels.ssm_scan.kernel import bwd_route, gla_scan_bwd_cuda
     from repro_torch.kernels.ssm_scan.ref import gla_scan_bwd_ref
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = {}
-    for B, H, S, K, V, dt, decay, with_final, use in GLA_BWD:
+    for B, H, S, K, V, dt, decay, with_final, want, use in GLA_BWD:
         dtype = getattr(torch, dt)
 
         def randn(*shape):
@@ -897,19 +939,22 @@ def check_gla_bwd(timer, seed) -> dict:
         else:
             w = -0.05 * torch.exp(randn(B, H, S, K))
         d_final = randn(B, H, K, V) if with_final else None
-        route = bwd_route(dtype, K, V, 128)
+        route = bwd_route(q, k, v, w, do, 128)
         before = dict(gla_scan_bwd_cuda.launches_by_route)
         got = gla_scan_bwd_cuda(q, k, v, w, do, d_final, 128)
         again = gla_scan_bwd_cuda(q, k, v, w, do, d_final, 128)
         torch.cuda.synchronize()
-        routed = {r: c - before[r] for r, c in
-                  gla_scan_bwd_cuda.launches_by_route.items()} == {
-                      r: 2 * (r == route) for r in before}
+        routed = route == want and {r: c - before[r] for r, c in
+                                    gla_scan_bwd_cuda.launches_by_route.items()} == {
+                                        r: 2 * (r == route) for r in before}
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         ref = gla_scan_bwd_ref(q, k, v, w, do, d_final, 128)
         err = bwd_err(got, ref)
+        dw_err = bwd_err(got[3:], ref[3:])
         abs_err = max(max_err(a, b) for a, b in zip(got, ref))
         largest = max(r.float().abs().max().item() for r in ref)
+        simt_err = (bwd_err(gla_bwd_simt(q, k, v, w, do, d_final), ref)
+                    if route == "mma" else None)
         del ref, again
         tol = TOL_GLA_BWD[dt]
         ok = routed and same and err <= tol and all(
@@ -922,19 +967,24 @@ def check_gla_bwd(timer, seed) -> dict:
                    abs_err=abs_err, ok=ok, route=[route],
                    ms=timer.ms(lambda: gla_scan_bwd_cuda(q, k, v, w, do, d_final, 128),
                                iters=10),
+                   simt_ms=(timer.ms(lambda: gla_bwd_simt(q, k, v, w, do, d_final), iters=10)
+                            if route == "mma" else None),
                    plain_ms=timer.ms(lambda: gla_scan_bwd_ref(q, k, v, w, do, d_final, 128),
                                      iters=3, warmup=1),
                    bound_ms=bnd, bound_by=by, library_ms=None)
+        simt = ("" if simt_err is None else
+                f"; the CUDA-core kernel {row['simt_ms']:.4f} ms, max|err| {simt_err:.3e}")
         log(f"gla_scan backward {row['case']} ({use}): route {route}"
-            f"{'' if routed else ' NOT TAKEN'}; max|err| {err:.3e} of max |grad| "
-            f"(tol {tol}; {abs_err:.3e} absolute, largest |grad| {largest:.4g}), two "
-            f"calls {'bit-equal' if same else 'DIFFER'}; kernel {row['ms']:.4f} ms plain "
-            f"{row['plain_ms']:.4f} ms bound {bnd:.4f} ms ({by}: {nbytes / 1e9:.4f} GB "
-            f"at 3.35 TB/s {nbytes / H100_BYTES_PER_S * 1e3:.4f} ms, {flops / 1e9:.3f} "
-            f"GFLOP at the {'bf16 tensor-core' if peak == H100_BF16_FLOPS else 'fp32'} "
-            f"rate {flops / peak * 1e3:.4f} ms, at the fp32 rate "
+            f"{'' if routed else ' NOT THE RULE OR NOT TAKEN'}; max|err| {err:.3e} of max "
+            f"|grad| (tol {tol}; dw {dw_err:.3e}; {abs_err:.3e} absolute, largest |grad| "
+            f"{largest:.4g}), two calls {'bit-equal' if same else 'DIFFER'}; kernel "
+            f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms bound {bnd:.4f} ms ({by}: "
+            f"{nbytes / 1e9:.4f} GB at 3.35 TB/s {nbytes / H100_BYTES_PER_S * 1e3:.4f} ms, "
+            f"{flops / 1e9:.3f} GFLOP at the "
+            f"{'bf16 tensor-core' if peak == H100_BF16_FLOPS else 'fp32'} rate "
+            f"{flops / peak * 1e3:.4f} ms, at the fp32 rate "
             f"{flops / H100_FP32_FLOPS * 1e3:.4f} ms; kernel {row['ms'] / bnd:.1f}x the "
-            "bound); no single PyTorch call computes the scan's gradient")
+            f"bound){simt}; no single PyTorch call computes the scan's gradient")
         rows[use] = row
         del q, k, v, w, do, d_final
         torch.cuda.empty_cache()
@@ -2440,11 +2490,11 @@ def routes_now() -> dict:
 
 
 def ssm_train_want(cfg) -> dict:
-    """A step's launches by route: every forward of the scan and of flash
-    on the tensor cores (bf16), the scan's backward on CUDA cores, flash's
-    on wgmma."""
+    """A step's launches by route: every forward and backward of the scan
+    and of flash on the tensor cores (bf16)."""
     ffwd, fbwd, gfwd, gbwd = reduced_train_launches(cfg)
-    return {"gla_scan": {"mma": gfwd, "simt": 0}, "gla_scan_bwd": {"simt": gbwd},
+    return {"gla_scan": {"mma": gfwd, "simt": 0},
+            "gla_scan_bwd": {"mma": gbwd, "simt": 0},
             "flash_attention": {"wgmma": ffwd, "simt": 0},
             "flash_attention_bwd": {"wgmma": fbwd, "simt": 0}}
 
@@ -2558,7 +2608,7 @@ def ssm_train_path(api, params, seed) -> dict:
             f"{rec['grad_norm']:.6f} lr {rec['lr']:.4e} {rec['ms']:.1f} ms peak "
             f"{rec['peak_gib']:.3f} GiB; launches {rec['launches']}")
         recs.append(rec)
-    bwd_launches = sum(r["launches"]["gla_scan_bwd"]["simt"] for r in recs)
+    bwd_launches = sum(r["launches"]["gla_scan_bwd"]["mma"] for r in recs)
     losses = [r["loss"] for r in recs]
     if any(r["launches"] != want for r in recs):
         raise SystemExit(f"{cfg.name} train steps' launches differ from {want} a step")
@@ -2614,11 +2664,12 @@ def main() -> int:
     report = _build.build(["flash_attention", "flash_attention_wgmma",
                            "flash_attention_bwd", "flash_attention_bwd_wgmma",
                            "paged_attention", "paged_attention_split",
-                           "gla_scan", "gla_scan_mma", "gla_scan_bwd"])
+                           "gla_scan", "gla_scan_mma", "gla_scan_bwd",
+                           "gla_scan_bwd_mma"])
     log(f"build: {time.perf_counter() - t0:.1f} s wall into {_build.BUILD_DIR} "
         + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in report.items()))
     for k, v in report.items():
-        if k == "gla_scan_bwd":   # 54 instances: summarised by gla_bwd_ptxas
+        if k.startswith("gla_scan_bwd"):   # by gla_bwd_ptxas
             continue
         for line in v["ptxas"].splitlines():
             if any(w in line for w in ("registers", "spill", "wgmma", "arning")):
@@ -2637,10 +2688,12 @@ def main() -> int:
         log(f"ptxas -v, D 320 instance of {lib}: " + "; ".join(lines))
     check_bwd_sass(report)
     gla_bwd_ptxas(report)
-    hmma = sass_count(_build.lib_path("gla_scan_mma"), "HMMA")
-    log(f"SASS of gla_scan_mma: {hmma} HMMA instructions")
-    if hmma == 0:
-        raise SystemExit("the bf16 gla_scan library has no tensor-core (HMMA) instruction")
+    for lib in ("gla_scan_mma", "gla_scan_bwd_mma"):
+        hmma = sass_count(_build.lib_path(lib), "HMMA")
+        log(f"SASS of {lib}: {hmma} HMMA instructions")
+        if hmma == 0:
+            raise SystemExit(f"the bf16 gla_scan library {lib} has no tensor-core "
+                             "(HMMA) instruction")
 
     # 3. kernels against plain versions
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -2853,7 +2906,7 @@ def main() -> int:
             # the gradient of the Pallas forward, likewise; launches of phase
             # 15's rwkv6_7b steps
             ("gla_scan_bwd", gla_bwd["rwkv6_7b training"], ssm_train["rwkv6_7b"]["launches"],
-             "gla_scan_bwd", "src/repro/kernels/ssm_scan/kernel.py:76")):
+             "gla_scan_bwd_mma", "src/repro/kernels/ssm_scan/kernel.py:76")):
         entries.append({
             "name": kname, "route": "cuda", "case": str(row["case"]),
             "kernel_route": row["route"][0],

@@ -23,16 +23,25 @@ neither kernel takes raises before a library is built or loaded.  At the
 prefill shape the kernels' bound is the bytes they must move; see the
 source notes.
 
-The backward (``gla_scan_bwd_cuda``, ``csrc/gla_scan_bwd.cu``) is the
-gradient of the chunked form, what ``ref.gla_scan_bwd_ref`` computes: one
-route, ``simt`` (fp32 FMAs on CUDA cores), for every call the forward takes
-(``bwd_route``).  It recomputes the chunk-start states, and the gradients
-of the states after each chunk, into two fp32 workspaces of (B, H,
-ceil(S / C), K, V) that it allocates here, and uses no atomics, so two
-calls give the same bits.  A call that autograd records goes through
-``GlaScanFn``, whose forward is the forward launch on either route and
-whose backward is the backward launch; any other call is the forward
-launch alone (prefill and its CUDA graphs).
+The backward (``gla_scan_bwd_cuda``) is the gradient of the chunked form,
+what ``ref.gla_scan_bwd_ref`` computes, on two routes by ``bwd_route``:
+
+  * ``mma`` (``csrc/gla_scan_bwd_mma.cu``) takes the calls the forward's
+    ``mma`` route takes whose dO is 16-byte aligned with B/H/S strides that
+    are multiples of 8 elements (the wrapper copies a dO that is not):
+    every product on the tensor cores with the same hi/lo splits; the two
+    state recurrences, then one pass per (batch * head, chunk) for dq, dk,
+    dv and dw;
+  * ``simt`` (``csrc/gla_scan_bwd.cu``) takes every other call: fp32 FMAs
+    on CUDA cores, four kernels.
+
+Both recompute the chunk-start states, and the gradients of the states
+after each chunk, into two fp32 workspaces of about (B, H, ceil(S / C), K,
+V) that the wrapper allocates, and use no atomics, so two calls give the
+same bits.  A call that autograd records goes through ``GlaScanFn``, whose
+forward is the forward launch on either route and whose backward is the
+backward launch; any other call is the forward launch alone (prefill and
+its CUDA graphs).
 """
 
 from __future__ import annotations
@@ -55,9 +64,14 @@ _LIBS = {
              [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 16 + [ctypes.c_int, ctypes.c_void_p]),
 }
-_BWD_LIB = ("gla_scan_bwd", "gla_scan_bwd_launch",
-            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
-            + [ctypes.c_longlong] * 20 + [ctypes.c_int, ctypes.c_void_p])
+_BWD_LIBS = {
+    "mma": ("gla_scan_bwd_mma", "gla_scan_bwd_mma_launch",
+            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+            + [ctypes.c_longlong] * 16 + [ctypes.c_void_p]),
+    "simt": ("gla_scan_bwd", "gla_scan_bwd_launch",
+             [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+             + [ctypes.c_longlong] * 20 + [ctypes.c_int, ctypes.c_void_p]),
+}
 
 
 def _check_kind(name, dtype, K, V, chunk) -> None:
@@ -69,37 +83,53 @@ def _check_kind(name, dtype, K, V, chunk) -> None:
         raise ValueError(f"{name}: chunk {chunk} not in [1, {MAX_CHUNK}]")
 
 
+def _check_call(name, q, k, v, w, chunk) -> None:
+    """The checks both directions make of q, k, v and w; raise TypeError
+    or ValueError, naming ``name``, for a call neither kernel takes."""
+    K, V = q.shape[-1], v.shape[-1]
+    _check_kind(name, q.dtype, K, V, chunk)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q, k and v must share a dtype")
+    if w.dtype != torch.float32:
+        raise TypeError(f"{name}: w must be float32, not {w.dtype}")
+    if k.shape != q.shape or w.shape != q.shape or v.shape[:3] != q.shape[:3]:
+        raise ValueError(f"{name}: bad shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, w {tuple(w.shape)}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)) or w.stride(-1) not in (0, 1):
+        raise ValueError(f"{name}: the last axis of q, k, v must be "
+                         "contiguous and that of w contiguous or broadcast")
+
+
+def _mma_takes(tensors, K, V, C) -> bool:
+    """bf16, K = V = 64, C a multiple of 16, and every tensor 16-byte
+    aligned with B/H/S strides that are multiples of 8 elements."""
+    return (tensors[0].dtype == torch.bfloat16 and K == V == MMA_DIM
+            and C > 0 and C % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors)
+            and all(s % 8 == 0 for t in tensors for s in t.stride()[:3]))
+
+
 def route(q, k, v, w, chunk: int = 128) -> str:
     """The kernel a call takes, ``"mma"`` or ``"simt"``, from the dtypes,
     K, V, ``C = min(chunk, S)`` and the alignment of q, k and v.  Raises
     TypeError or ValueError for a call that neither kernel takes."""
-    B, H, S, K = q.shape
-    V = v.shape[-1]
-    _check_kind("gla_scan_cuda", q.dtype, K, V, chunk)
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("gla_scan_cuda: q, k and v must share a dtype")
-    if w.dtype != torch.float32:
-        raise TypeError(f"gla_scan_cuda: w must be float32, not {w.dtype}")
-    if k.shape != q.shape or w.shape != q.shape or v.shape[:3] != q.shape[:3]:
-        raise ValueError(f"gla_scan_cuda: bad shapes q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}, w {tuple(w.shape)}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)) or w.stride(-1) not in (0, 1):
-        raise ValueError("gla_scan_cuda: the last axis of q, k, v must be "
-                         "contiguous and that of w contiguous or broadcast")
-    C = min(chunk, S)
-    if (q.dtype == torch.bfloat16 and K == V == MMA_DIM and C > 0 and C % 16 == 0
-            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
-            and all(s % 8 == 0 for t in (q, k, v) for s in t.stride()[:3])):
-        return "mma"
-    return "simt"
+    _check_call("gla_scan_cuda", q, k, v, w, chunk)
+    K, V = q.shape[-1], v.shape[-1]
+    return "mma" if _mma_takes((q, k, v), K, V, min(chunk, q.shape[2])) else "simt"
 
 
-def bwd_route(dtype: torch.dtype, K: int, V: int, chunk: int = 128) -> str:
-    """The backward kernel a call takes: ``"simt"`` for every call it
-    takes (float32 or bfloat16, K and V in ``DIMS``, chunk in [1,
-    ``MAX_CHUNK``]).  Raises TypeError or ValueError for another."""
-    _check_kind("gla_scan_bwd_cuda", dtype, K, V, chunk)
-    return "simt"
+def bwd_route(q, k, v, w, do, chunk: int = 128) -> str:
+    """The backward kernel a call takes: ``"mma"`` where the forward's rule
+    names it and dO is aligned as q, k and v must be, else ``"simt"``.
+    Raises TypeError or ValueError for a call that neither takes."""
+    name = "gla_scan_bwd_cuda"
+    _check_call(name, q, k, v, w, chunk)
+    if do.shape != v.shape or do.dtype != q.dtype or do.stride(-1) != 1:
+        raise ValueError(f"{name}: do {tuple(do.shape)} {do.dtype} must have v's "
+                         f"shape {tuple(v.shape)}, q's dtype {q.dtype} and a "
+                         "contiguous last axis")
+    K, V = q.shape[-1], v.shape[-1]
+    return "mma" if _mma_takes((q, k, v, do), K, V, min(chunk, q.shape[2])) else "simt"
 
 
 class GlaScanFn(torch.autograd.Function):
@@ -174,26 +204,25 @@ def gla_scan_bwd_cuda(q, k, v, w, do, d_final=None, chunk: int = 128):
     K axis, one value per element, which autograd's expand sums).
 
     ``do`` (B, H, S, V) is the output's gradient, in q's dtype, with any
-    strides and a contiguous last axis (else copied); ``d_final`` (B, H, K,
-    V) the final state's, or None for zero.  What ``ref.gla_scan_bwd_ref``
-    computes.  Inputs as the forward takes them, on the route ``bwd_route``
-    names."""
+    strides (copied where its last axis is strided, or where it alone keeps
+    the call off the ``mma`` route); ``d_final`` (B, H, K, V) the final
+    state's, or None for zero.  What ``ref.gla_scan_bwd_ref`` computes.
+    Inputs as the forward takes them, on the route ``bwd_route`` names."""
     name = "gla_scan_bwd_cuda"
     B, H, S, K = q.shape
     V = v.shape[-1]
-    kind = bwd_route(q.dtype, K, V, chunk)
-    route(q, k, v, w, chunk)   # the forward's checks of q, k, v and w
+    _check_call(name, q, k, v, w, chunk)
+    C = min(chunk, S)
+    if do.shape == v.shape and do.dtype == q.dtype and (do.stride(-1) != 1 or (
+            _mma_takes((q, k, v), K, V, C) and not _mma_takes((do,), K, V, C))):
+        do = do.contiguous()
+    kind = bwd_route(q, k, v, w, do, chunk)
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v, w, do)):
         raise ValueError(f"{name}: q, k, v, w, do must be on one CUDA device")
-    if do.shape != v.shape or do.dtype != q.dtype:
-        raise ValueError(f"{name}: do {tuple(do.shape)} {do.dtype} must have v's "
-                         f"shape {tuple(v.shape)} and q's dtype {q.dtype}")
     if d_final is not None and (d_final.shape != (B, H, K, V)
                                 or d_final.device != q.device):
         raise ValueError(f"{name}: d_final must be (B, H, K, V) = {(B, H, K, V)} "
                          "on q's device")
-    if do.stride(-1) != 1:
-        do = do.contiguous()
     if d_final is not None:
         d_final = d_final.float().contiguous()
     dq = torch.empty((B, H, S, K), dtype=q.dtype, device=q.device)
@@ -202,20 +231,25 @@ def gla_scan_bwd_cuda(q, k, v, w, do, d_final=None, chunk: int = 128):
     dw = torch.empty((B, H, S, K), dtype=torch.float32, device=q.device)
     if dq.numel() == 0 or dv.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_(), dw.zero_()
-    C = min(chunk, S)
     n = -(-S // C)
-    states = torch.empty((B, H, n, K, V), dtype=torch.float32, device=q.device)
-    dstates = torch.empty_like(states)
-    lib, symbol, argtypes = _BWD_LIB
+    # mma keeps the final state as well: (n + 1) chunk-start states
+    states = torch.empty((B, H, n + (kind == "mma"), K, V), dtype=torch.float32,
+                         device=q.device)
+    dstates = torch.empty((B, H, n, K, V), dtype=torch.float32, device=q.device)
+    lib, symbol, argtypes = _BWD_LIBS[kind]
     fn = _build.function(lib, symbol, argtypes)
-    strides = [s for t in (q, k, v, w, do) for s in t.stride()]
+    ptrs = [t.data_ptr() for t in (q, k, v, w, do)]
+    ptrs += [None if d_final is None else d_final.data_ptr()]
+    ptrs += [t.data_ptr() for t in (dq, dk, dv, dw, states, dstates)]
     with torch.cuda.device(q.device):
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                  do.data_ptr(), None if d_final is None else d_final.data_ptr(),
-                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-                  states.data_ptr(), dstates.data_ptr(), B, H, S, K, V, C,
-                  *strides, int(q.dtype == torch.bfloat16),
-                  torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if kind == "mma":
+            strides = [s for t in (q, k, v, do) for s in t.stride()[:3]] + list(w.stride())
+            code = fn(*ptrs, B, H, S, C, *strides, stream)
+        else:
+            strides = [s for t in (q, k, v, w, do) for s in t.stride()]
+            code = fn(*ptrs, B, H, S, K, V, C, *strides,
+                      int(q.dtype == torch.bfloat16), stream)
     _build.check(lib, code)
     gla_scan_bwd_cuda.launches += 1
     gla_scan_bwd_cuda.launches_by_route[kind] += 1
@@ -223,4 +257,4 @@ def gla_scan_bwd_cuda(q, k, v, w, do, d_final=None, chunk: int = 128):
 
 
 gla_scan_bwd_cuda.launches = 0
-gla_scan_bwd_cuda.launches_by_route = {"simt": 0}
+gla_scan_bwd_cuda.launches_by_route = {"mma": 0, "simt": 0}

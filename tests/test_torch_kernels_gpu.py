@@ -10,7 +10,9 @@ for bf16 on attention; four times that on the GLA scan's output and 1e-3
 on its final state, as the JAX package's GLA tests.  The flash backward's
 gradients vary in scale, so its tolerances (the same 2e-5 and 2e-2) are
 relative to the largest |gradient| of each output; so are the GLA
-backward's (1e-4 in fp32, 2e-2 in bf16) against ``gla_scan_bwd_ref``.
+backward's (1e-4 in fp32, 2e-2 in bf16) against ``gla_scan_bwd_ref``, on
+both of its routes (bf16 at K = V = 64 on the tensor cores, where dw, fp32,
+is also held to 1e-4).
 """
 
 import numpy as np
@@ -31,6 +33,8 @@ from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention
 from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.ssm_scan import gla_scan
+from repro_torch.kernels.ssm_scan.kernel import _BWD_LIBS as GLA_BWD_LIBS
+from repro_torch.kernels.ssm_scan.kernel import bwd_route as bwd_route_gla
 from repro_torch.kernels.ssm_scan.kernel import gla_scan_bwd_cuda, gla_scan_cuda
 from repro_torch.kernels.ssm_scan.ops import gla_scan_xla
 from repro_torch.kernels.ssm_scan.ref import gla_scan_bwd_ref
@@ -535,11 +539,16 @@ def _gla_bwd_close(got, ref, dtype):
         assert err <= GLA_BWD_TOL[dtype], f"{name}: {err:.3e} of max |grad|"
 
 
-def _gla_bwd_counted(*args):
-    before = gla_scan_bwd_cuda.launches_by_route["simt"]
+def _gla_bwd_counted(*args, route=None):
+    """gla_scan_bwd_cuda, with the launch counted on ``route`` (by default
+    the one the rule names for these inputs) alone."""
+    q, k, v, w, do, _, chunk = args
+    route = route or bwd_route_gla(q, k, v, w, do, chunk)
+    before = dict(gla_scan_bwd_cuda.launches_by_route)
     got = gla_scan_bwd_cuda(*args)
     torch.cuda.synchronize()
-    assert gla_scan_bwd_cuda.launches_by_route["simt"] == before + 1
+    assert {r: n - before[r] for r, n in gla_scan_bwd_cuda.launches_by_route.items()} == {
+        r: int(r == route) for r in before}
     return got
 
 
@@ -590,12 +599,88 @@ def test_gla_scan_bwd_cuda_guard_and_clip_ties(decay, cuda_device):
     _gla_bwd_close(got, gla_scan_bwd_ref(*args, None, case[-1]), "float32")
 
 
+def _gla_bwd_simt(q, k, v, w, do, d_final, chunk):
+    """The CUDA-core backward through its C entry point, on any call it
+    takes (the wrapper would send a bf16 K = V = 64 call to mma)."""
+    from repro_torch.kernels import _build
+
+    lib, symbol, argtypes = GLA_BWD_LIBS["simt"]
+    B, H, S, Kd = q.shape
+    V = v.shape[-1]
+    C = min(chunk, S)
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+    dw = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    states = torch.empty((B, H, -(-S // C), Kd, V), dtype=torch.float32, device=q.device)
+    dstates = torch.empty_like(states)
+    strides = [s for t in (q, k, v, w, do) for s in t.stride()]
+    code = _build.function(lib, symbol, argtypes)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), do.data_ptr(),
+        None if d_final is None else d_final.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dw.data_ptr(), states.data_ptr(), dstates.data_ptr(), B, H, S,
+        Kd, V, C, *strides, 1, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code)
+    torch.cuda.synchronize()
+    return dq, dk, dv, dw
+
+
+# B, H, S, chunk, decay: calls of the tensor-core backward (bf16, K = V =
+# 64), chunks of 128, 64, 48 and 16, a ragged S and strong decay.
+GLA_BWD_MMA_CASES = [(2, 4, 256, 128, "rwkv6"), (1, 3, 300, 128, "rwkv6"),
+                     (2, 2, 200, 64, "rwkv6"), (1, 2, 200, 48, "rwkv6"),
+                     (1, 2, 40, 16, "rwkv6"), (1, 2, 256, 128, "strong")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GLA_BWD_MMA_CASES)
+def test_gla_scan_bwd_cuda_mma_matches_plain_and_simt(case, cuda_device):
+    """The tensor-core backward against gla_scan_bwd_ref (2e-2 of the
+    largest |gradient|; dw, fp32, within 1e-4) and against the CUDA-core
+    kernel on the same call, with and without the final state's gradient."""
+    B, H, S, chunk, decay = case
+    q, k, v, w, do, d_final = _gla_bwd_inputs((B, H, S, 64, 64, chunk), "bfloat16",
+                                              cuda_device)
+    if decay == "strong":
+        w = torch.full_like(w, -2.5)
+    for df in (d_final, None):
+        got = _gla_bwd_counted(q, k, v, w, do, df, chunk, route="mma")
+        ref = gla_scan_bwd_ref(q, k, v, w, do, df, chunk)
+        _gla_bwd_close(got, ref, "bfloat16")
+        _gla_bwd_close(got, _gla_bwd_simt(q, k, v, w, do, df, chunk), "bfloat16")
+        dw_err = ((got[3] - ref[3]).abs().max() / ref[3].abs().max()).item()
+        assert dw_err <= GLA_BWD_TOL["float32"], f"dw: {dw_err:.3e}"
+
+
+@pytest.mark.gpu
+def test_gla_scan_bwd_cuda_mma_stride_zero_w_and_views(cuda_device):
+    """Mamba2's call: head-transposed bf16 q/k/v and dO views and one decay
+    per head broadcast over K with stride 0, on the tensor cores; and a dO
+    that starts 2 bytes into its buffer, which the wrapper copies so that
+    the call stays there."""
+    B, S, H = 2, 300, 3
+    rng = np.random.default_rng(9)
+    q, k = (_on(rng.standard_normal((B, S, H, 64), np.float32) * 0.5, cuda_device,
+                "bfloat16").transpose(1, 2) for _ in range(2))
+    v, do = (_on(rng.standard_normal((B, S, H, 64), np.float32), cuda_device,
+                 "bfloat16").transpose(1, 2) for _ in range(2))
+    dt = _on(-0.05 * np.exp(rng.standard_normal((B, S, H), np.float32)), cuda_device)
+    w = dt.transpose(1, 2)[..., None].expand(B, H, S, 64)
+    assert w.stride(-1) == 0 and not q.is_contiguous() and not do.is_contiguous()
+    ref = gla_scan_bwd_ref(q, k, v, w, do, None, 128)
+    _gla_bwd_close(_gla_bwd_counted(q, k, v, w, do, None, 128, route="mma"), ref,
+                   "bfloat16")
+    odd = torch.empty((B, H, S, 72), dtype=torch.bfloat16, device=cuda_device)[..., 1:65]
+    odd.copy_(do)
+    assert odd.data_ptr() % 16 and bwd_route_gla(q, k, v, w, odd, 128) == "simt"
+    _gla_bwd_close(_gla_bwd_counted(q, k, v, w, odd, None, 128, route="mma"), ref,
+                   "bfloat16")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gla_scan_bwd_cuda_is_deterministic(dtype, cuda_device):
     case = (2, 4, 300, 64, 64, 128)
     args = _gla_bwd_inputs(case, dtype, cuda_device)
-    a = gla_scan_bwd_cuda(*args, 128)
+    a = _gla_bwd_counted(*args, 128, route="mma" if dtype == "bfloat16" else "simt")
     b = gla_scan_bwd_cuda(*args, 128)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
