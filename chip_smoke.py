@@ -31,8 +31,10 @@ Phases, each of which exits non-zero on failure:
      fp32; SDPA timed with the window as a mask and its backend named),
      each drawn from a generator of its own; the flash backward against
      attention_bwd_ref at TinyLlama's training shape (B 8, S 2048),
-     granite's G 3, qwen2_vl_72b's G 8 at D 128, gemma3_4b's D 320 with
-     its window and without, Sq != Sk at a q_offset and in fp32, each on
+     granite's G 3, qwen2_vl_72b's G 8 at D 128, gemma3_4b's training
+     calls (B 1, S 2048, D 320) with its window and without, SeamlessM4T's
+     encoder and cross-attention training calls (no mask, Sq 1024 and 256
+     over Sk 1024), Sq != Sk at a q_offset and in fp32, each on
      the route the backward's rule names (bf16 at D 64 and 128 on the
      tensor cores with the forward's lse, D 320 and fp32 on CUDA cores):
      max |err| over the largest |gradient| beside the tolerance, two calls
@@ -51,9 +53,11 @@ Phases, each of which exits non-zero on failure:
      models on the card (the kernels) held against the CPU path (their
      plain versions) in fp32, for the MoE family with its load-balance loss
      (and, once, a MoE layer that drops tokens), and reduced TinyLlama's,
-     granite-MoE's, RWKV6's and Zamba2's loss_fn and every gradient leaf
-     (the forward and backward kernels of flash and gla_scan, launches
-     counted) the same way;
+     granite-MoE's, RWKV6's, Zamba2's, gemma3_4b's (with a tail and a
+     window), SeamlessM4T's (with seeded frames) and qwen2_vl_72b's (with
+     an embeds prefix) loss_fn and every gradient leaf (the forward and
+     backward kernels of flash and gla_scan, launches counted) the same
+     way;
   4. the TinyLlama path: full-width TinyLlama (random weights from the
      seed) -- prefill of 8 x 512 tokens through the bf16 flash kernel, dense
      decode, then paged decode through the paged kernel (every launch on
@@ -132,7 +136,19 @@ Phases, each of which exits non-zero on failure:
      norm, ms, peak memory, launches by route a step: RWKV6 12 forward and
      6 backward on mma; Zamba2 74 and 38, with flash 12 forward and 6
      backward on wgmma) and one profiled step (device busy and idle
-     share, largest items, the gla_scan backward's share).
+     share, largest items, the gla_scan backward's share);
+ 16. gemma3_4b and seamless_m4t_medium train at full width and depth:
+     gemma3_4b (34 layers, D 320) at B 8 x 2048 from the structured
+     stream in 8 microbatches of 1 on the in-place Trainer, SeamlessM4T
+     (12 + 12 layers) at B 8 with 1024 seeded frames and 256 target tokens
+     through the in-place make_train_fn; for each the first (micro)batch's
+     attention gradients through the kernels held against the plain
+     attention path (the planted faults of phase 14, two of which must fail
+     that limit), then 10 steps (loss, grad norm, ms, peak memory, which
+     must fit the card, and flash launches by route a step: gemma3_4b 8 x
+     (68 forward on wgmma, 34 backward on simt), SeamlessM4T 72 and 36, all
+     on wgmma) and one profiled step (device busy and idle share, largest
+     items, the flash backward's ms and share of busy time).
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
 """
@@ -300,13 +316,17 @@ FLASH_GEMMA = [(8, 1536, 1536, 8, 4, 320, 1024, "bfloat16", "local layers"),
 
 # B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset, dtype name, use: the
 # flash backward's cases of phase 3: TinyLlama's training call (phase 14),
-# granite-MoE's and qwen2_vl_72b's heads, gemma3_4b's D 320 with its window
-# of 1024 and without, Sq != Sk at a q_offset other than Sk - Sq, and fp32.
+# granite-MoE's and qwen2_vl_72b's heads, gemma3_4b's training calls (phase
+# 16: a microbatch of 1 x 2048, D 320) with its window of 1024 and without,
+# SeamlessM4T's (phase 16: the encoder's and the cross-attention's, both
+# without a mask), Sq != Sk at a q_offset other than Sk - Sq, and fp32.
 FLASH_BWD = [(8, 2048, 2048, 32, 4, 64, True, None, 0, "bfloat16", "tinyllama_1p1b training"),
              (8, 2048, 2048, 24, 8, 64, True, None, 0, "bfloat16", "granite_moe_3b_a800m heads"),
              (2, 2048, 2048, 64, 8, 128, True, None, 0, "bfloat16", "qwen2_vl_72b heads"),
-             (2, 2048, 2048, 8, 4, 320, True, 1024, 0, "bfloat16", "gemma3_4b local layers"),
-             (2, 2048, 2048, 8, 4, 320, True, None, 0, "bfloat16", "gemma3_4b global layers"),
+             (1, 2048, 2048, 8, 4, 320, True, 1024, 0, "bfloat16", "gemma3_4b training, local layers"),
+             (1, 2048, 2048, 8, 4, 320, True, None, 0, "bfloat16", "gemma3_4b training, global layers"),
+             (8, 1024, 1024, 16, 16, 64, False, None, 0, "bfloat16", "seamless_m4t_medium training, encoder"),
+             (8, 256, 1024, 16, 16, 64, False, None, 0, "bfloat16", "seamless_m4t_medium training, cross-attention"),
              (8, 256, 1024, 32, 4, 64, True, None, 700, "bfloat16", "Sq != Sk at q_offset 700"),
              (8, 512, 512, 32, 4, 64, True, None, 0, "float32", "fp32")]
 # The flash backward against attention_bwd_ref on the same inputs, max |err|
@@ -370,6 +390,30 @@ TOL_SSM_TRAIN_GRADS = {"rwkv6_7b": 0.024, "zamba2_1p2b": 0.19}
 # a step with a nonzero lr has moved them: with 2 warmup steps step 0's lr
 # is 0 and step 1's is not, so Zamba2's gate reads step 2.
 SSM_GATE_STEP = {"rwkv6_7b": 0, "zamba2_1p2b": 2}
+# Phase 16: gemma3_4b at full width and depth (34 layers, 8/4 heads of 320,
+# window 1024, tied vocab 262144), B 8 x S 2048 from the structured stream
+# in 8 microbatches of 1 (the fp32 logits of one are 2.15 GB; of all 8,
+# 17.2 GB), on the in-place Trainer; seamless_m4t_medium at full width and
+# depth (12 + 12 layers, 16 heads of 64), B 8 with 1024 seeded frames and
+# 256 target tokens, through the in-place make_train_fn.
+GEMMA_TRAIN = dict(B=8, S=2048, microbatch=8, steps=10)
+SEAMLESS_TRAIN = dict(B=8, S_enc=1024, S=256, steps=10)
+# The flash backward's route in phase 16: the tensor cores at D 64, CUDA
+# cores at gemma3_4b's D 320 (kernels/flash_attention/kernel.py bwd_route).
+TRAIN16_BWD_ROUTE = {"gemma3_4b": "simt", "seamless_m4t_medium": "wgmma"}
+# Phase 16's gradient gate (train_gate on one microbatch of the first
+# batch): the wq/wk/wv/wo gradients of every attention layer (gemma3_4b's
+# window, global and tail layers; SeamlessM4T's encoder, decoder self- and
+# cross-attention) and the global norm, through the kernels against the
+# plain attention path, the worst ||g - g_plain|| / ||g_plain||.  An H100
+# measured 0.020815 (gemma3_4b) and 0.24296 (seamless_m4t_medium) at seed
+# 0; these allow 3.5 times that.  SeamlessM4T's worst leaves are the
+# decoder self-attention's wq and wk in layers 5-11, whose gradients are
+# about a hundredth of the others' (|g| 4e-4 to 6e-4 against 2e-2 to 9e-2:
+# near-uniform attention, where dS is a small difference and the kernel's
+# bf16 P shows); its wv and wo read at most 0.034.  The planted faults read
+# 12703 and 0.85786 (gemma3_4b), 248.60 and 1.1826 (seamless_m4t_medium).
+TOL_TRAIN16_GRADS = {"gemma3_4b": 0.073, "seamless_m4t_medium": 0.85}
 
 
 def log(msg: str) -> None:
@@ -1130,8 +1174,13 @@ def check_flash_bwd(timer, seed) -> dict:
 def reduced_train_launches(cfg) -> tuple[int, int, int, int]:
     """(flash forward, flash backward, gla_scan forward, gla_scan backward)
     launches of one value_and_grad: a rematerialized layer runs its forward
-    kernel twice (Zamba2's tail is not rematerialized)."""
+    kernel twice (Zamba2's tail is not rematerialized); an encoder-decoder
+    layer pair has three attention calls (encoder self-attention, decoder
+    self- and cross-attention)."""
     L = cfg.num_layers
+    if cfg.family == "encdec":
+        n = cfg.encoder_layers + 2 * cfg.decoder_layers
+        return 2 * n, n, 0, 0
     if cfg.family == "ssm":
         return 0, 0, 2 * L, L
     if cfg.family == "hybrid":
@@ -1142,8 +1191,11 @@ def reduced_train_launches(cfg) -> tuple[int, int, int, int]:
 
 def check_reduced_grads_against_cpu(arch: str, seed: int) -> None:
     """A reduced ``arch`` in fp32 (2 layers; zamba2_1p2b: 5 Mamba2 layers,
-    two groups of 2 and a tail of 1, with seeded short-conv weights):
-    ``loss_fn``'s value and every
+    two groups of 2 and a tail of 1, with seeded short-conv weights;
+    seamless_m4t_medium: 2 encoder and 2 decoder layers over 24 seeded
+    frames; gemma3_4b: ``REDUCED_CHANGES``, a window the 24 tokens cross;
+    qwen2_vl_72b: a seeded bf16 embeds prefix of min(VLM_PATCH_TOKENS,
+    S // 4) rows): ``loss_fn``'s value and every
     gradient leaf on the card (the flash and gla_scan forwards, twice a
     rematerialized layer, and their backward kernels once a layer) against
     the CPU path (their plain versions), each leaf's max |err| over its
@@ -1152,13 +1204,13 @@ def check_reduced_grads_against_cpu(arch: str, seed: int) -> None:
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda, flash_attention_cuda)
     from repro_torch.kernels.ssm_scan.kernel import gla_scan_bwd_cuda, gla_scan_cuda
-    from repro_torch.models.registry import build_model
+    from repro_torch.models.registry import VLM_PATCH_TOKENS, build_model
     from repro_torch.train.loop import value_and_grad
     from repro_torch.tree import leaf_paths
 
     cfg = reduced_config(get_config(arch))
-    if cfg.family != "hybrid":
-        cfg = dataclasses.replace(cfg, num_layers=2)
+    if cfg.family not in ("hybrid", "encdec"):
+        cfg = dataclasses.replace(cfg, **REDUCED_CHANGES.get(arch, dict(num_layers=2)))
     params, _ = build_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
     if cfg.family == "hybrid":
         # Mamba2's short-conv weights start at zero, which zeroes the scan's
@@ -1170,13 +1222,21 @@ def check_reduced_grads_against_cpu(arch: str, seed: int) -> None:
             conv.copy_(0.3 * torch.randn(conv.shape, generator=g))
     tok = torch.randint(0, cfg.vocab_size, (2, 2, 24),
                         generator=torch.Generator().manual_seed(seed))
+    batch = {"tokens": tok[0], "labels": tok[1]}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(2, 24, cfg.d_model,
+                                      generator=torch.Generator().manual_seed(seed + 1))
+    if cfg.family == "vlm":
+        batch["embeds"] = (0.02 * torch.randn(
+            2, min(VLM_PATCH_TOKENS, 24 // 4), cfg.d_model,
+            generator=torch.Generator().manual_seed(seed + 2))).to(torch.bfloat16)
     counters = (flash_attention_cuda, flash_attention_bwd_cuda, gla_scan_cuda,
                 gla_scan_bwd_cuda)
     out = {}
     for dev in ("cpu", "cuda"):
         before = [fn.launches for fn in counters]
         loss, g = value_and_grad(build_model(cfg, dev), tree_to(params, dev, torch.float32),
-                                 {"tokens": tok[0].to(dev), "labels": tok[1].to(dev)})
+                                 {k: v.to(dev) for k, v in batch.items()})
         out[dev] = (loss.float().cpu(), [t.float().cpu() for _, t in leaf_paths(g)])
         launches = tuple(fn.launches - b for fn, b in zip(counters, before))
     if launches != reduced_train_launches(cfg):
@@ -1186,7 +1246,9 @@ def check_reduced_grads_against_cpu(arch: str, seed: int) -> None:
     worst = max([abs(out["cpu"][0] - out["cuda"][0]).item() / abs(out["cpu"][0]).item()]
                 + [max_err(a, b) / max(b.abs().max().item(), 1e-30)
                    for a, b in zip(out["cuda"][1], out["cpu"][1])])
-    log(f"reduced {arch} (L{cfg.num_layers}), card vs CPU path (fp32, loss_fn and its "
+    depth = (f"L{cfg.encoder_layers}+{cfg.decoder_layers}" if cfg.family == "encdec"
+             else f"L{cfg.num_layers}")
+    log(f"reduced {arch} ({depth}), card vs CPU path (fp32, loss_fn and its "
         f"{len(out['cpu'][1])} gradient leaves; {launches[0]} forward and "
         f"{launches[1]} backward flash launches, {launches[2]} forward and "
         f"{launches[3]} backward gla_scan launches): max|err| {worst:.3e} of "
@@ -2142,20 +2204,32 @@ def kv_paging(paged: dict, blocks: list[tuple[int, int]], hbm_blocks: int) -> di
 
 
 def attn_grads(g) -> dict:
-    """The wq/wk/wv/wo gradients of every layer, fp32: {(layer, name): t}."""
-    a = g["blocks"]["attn"]
-    return {(l, n): a[n][l].float() for n in ("wq", "wk", "wv", "wo")
-            for l in range(a["wq"].shape[0])}
+    """The wq/wk/wv/wo gradients of every attention layer, fp32, by (layer,
+    name): every stack of attention weights (``blocks``; gemma3's window,
+    global and tail stacks; the encoder's and the decoder's self- and
+    cross-attention) split over its leading layer axes."""
+    from repro_torch.tree import leaf_paths
+
+    out = {}
+    for path, t in leaf_paths(g):
+        if path[-2:-1] in (("attn",), ("self_attn",), ("cross_attn",)) and path[-1] in (
+                "wq", "wk", "wv", "wo"):
+            for i, w in enumerate(t.reshape(-1, *t.shape[-2:])):
+                out[("/".join(path[:-1]) + f"[{i}]", path[-1])] = w.float()
+    return out
 
 
-def grad_reading(g, ref: dict, ref_norm: float) -> float:
-    """The gradient gate's reading: the worst over ``ref``'s leaves of
-    ||g - ref|| / ||ref||, and the global norms' relative difference."""
+def grad_reading(g, got: dict, ref: dict, ref_norm: float) -> tuple[float, str]:
+    """A gradient gate's reading: the worst over ``ref``'s leaves of
+    ||got - ref|| / ||ref||, and the relative difference of ``g``'s global
+    norm from ``ref_norm``; with the leaf or norm that gave it."""
     from repro_torch.optim.adamw import global_norm
 
-    got = attn_grads(g)
-    worst = max((got[k] - r).norm().item() / r.norm().item() for k, r in ref.items())
-    return max(worst, abs(global_norm(g).item() - ref_norm) / ref_norm)
+    per = {f"{k[0]} {k[1]}": (got[k] - r).norm().item() / r.norm().item()
+           for k, r in ref.items()}
+    per["global norm"] = abs(global_norm(g).item() - ref_norm) / ref_norm
+    worst = max(per, key=per.get)
+    return per[worst], worst
 
 
 def bwd_faults() -> dict:
@@ -2176,46 +2250,60 @@ def bwd_faults() -> dict:
             "the last key tile's dK/dV zeroed": tile_zeroed(slice(-64, None))}
 
 
-def train_gate(api, params, batch, flash_cuda, bwd_cuda) -> float:
-    """The first step's gradients through the kernels against the plain
-    attention path (``flash_attention_xla`` under autograd on the card),
-    then with each planted fault of ``bwd_faults``: the kernels must pass
-    ``TOL_TRAIN_GRADS``; the first two faults must fail it, the third is
-    read only.  Returns the kernels' reading."""
+def flash_train_want(cfg, bwd_route: str, n: int = 1) -> dict:
+    """Flash launches by route of ``n`` value_and_grads: every forward on
+    the tensor cores (bf16), every backward on ``bwd_route``."""
+    fwd, bwd, _, _ = reduced_train_launches(cfg)
+    return {"flash_attention": {"wgmma": n * fwd, "simt": 0},
+            "flash_attention_bwd": {r: n * bwd * (r == bwd_route)
+                                    for r in ("wgmma", "simt")}}
+
+
+def train_gate(api, params, batch, tol: float, bwd_route: str) -> float:
+    """The first step's gradients through the kernels (their launches by
+    route held to ``flash_train_want``) against the plain attention path
+    (``flash_attention_xla`` under autograd on the card, patched into
+    ``models.layers`` and ``models.encdec``), then with each planted fault
+    of ``bwd_faults``: the kernels must pass ``tol``; the first two faults
+    must fail it, the third is read only.  Returns the kernels' reading."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ops import flash_attention_xla
+    from repro_torch.models import encdec as ED
     from repro_torch.models import layers as TL
     from repro_torch.optim.adamw import global_norm
     from repro_torch.train.loop import value_and_grad
 
-    kernel_fa = TL.flash_attention
+    kernel_fa = TL.flash_attention, ED.flash_attention
 
-    def plain(q, k, v, *, causal, window, q_offset, **_):
+    def plain(q, k, v, *, causal, window=None, q_offset=None, **_):
         return flash_attention_xla(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
 
-    TL.flash_attention = plain
+    TL.flash_attention = ED.flash_attention = plain
     try:
         t0 = time.perf_counter()
         _, g = value_and_grad(api, params, batch)
         sync(api.device)
         plain_s = time.perf_counter() - t0
     finally:
-        TL.flash_attention = kernel_fa
+        TL.flash_attention, ED.flash_attention = kernel_fa
     ref, ref_norm = attn_grads(g), global_norm(g).item()
     del g
-    fwd0, bwd0 = flash_cuda.launches, bwd_cuda.launches_by_route["wgmma"]
+    before = routes_now()
+    t0 = time.perf_counter()
     _, g = value_and_grad(api, params, batch)
-    launches = (flash_cuda.launches - fwd0, bwd_cuda.launches_by_route["wgmma"] - bwd0)
-    reading = grad_reading(g, ref, ref_norm)
+    sync(api.device)
+    kernel_s = time.perf_counter() - t0
+    want = flash_train_want(api.cfg, bwd_route)
+    launches = {k: v for k, v in routes_since(before).items() if k in want}
+    reading, worst = grad_reading(g, attn_grads(g), ref, ref_norm)
     del g
-    L = api.cfg.num_layers
-    log(f"gradient gate: first step's wq/wk/wv/wo gradients of all {L} layers "
-        f"and the global norm ({ref_norm:.4f}), kernels ({launches[0]} forward, "
-        f"{launches[1]} wgmma backward launches) against the plain attention path "
-        f"({plain_s:.2f} s): {reading:.4e} (limit {TOL_TRAIN_GRADS})")
-    if launches != (2 * L, L) or reading > TOL_TRAIN_GRADS:
-        raise SystemExit("gradient gate failed")
+    log(f"{api.cfg.name} gradient gate: first step's wq/wk/wv/wo gradients of all "
+        f"{len(ref) // 4} attention layers and the global norm ({ref_norm:.4f}), "
+        f"kernels ({kernel_s:.2f} s; launches {launches}) against the plain "
+        f"attention path ({plain_s:.2f} s): {reading:.4e} at {worst} (limit {tol})")
+    if launches != want:
+        raise SystemExit(f"{api.cfg.name} gradient gate: launches differ from {want}")
     real = FK.FlashAttentionFn.backward
 
     def planted(fault):
@@ -2224,20 +2312,24 @@ def train_gate(api, params, batch, flash_cuda, bwd_cuda) -> float:
             return (*fault(dq, dk, dv), *rest)
         return staticmethod(backward)
 
+    passed = []
     try:
         for i, (name, fault) in enumerate(bwd_faults().items()):
             FK.FlashAttentionFn.backward = planted(fault)
             _, g = value_and_grad(api, params, batch)
-            r = grad_reading(g, ref, ref_norm)
+            r, worst = grad_reading(g, attn_grads(g), ref, ref_norm)
             del g
             must = i < 2
-            log(f"gradient gate, planted fault ({name}): {r:.4e} "
+            log(f"{api.cfg.name} gradient gate, planted fault ({name}): {r:.4e} at {worst} "
                 f"({'must fail' if must else 'read only'}: "
-                f"{'fails' if r > TOL_TRAIN_GRADS else 'passes'} the limit)")
-            if must and r <= TOL_TRAIN_GRADS:
-                raise SystemExit(f"gradient gate passed a planted fault ({name})")
+                f"{'fails' if r > tol else 'passes'} the limit)")
+            if must and r <= tol:
+                passed.append(name)
     finally:
         FK.FlashAttentionFn.backward = staticmethod(real)
+    if reading > tol or passed:
+        raise SystemExit(f"{api.cfg.name} gradient gate failed (reading {reading:.4e}, "
+                         f"limit {tol}; planted faults that pass: {passed})")
     return reading
 
 
@@ -2270,39 +2362,20 @@ def micro_gate(api, params, batch, tcfg) -> float:
     return reading
 
 
-def train_steps(trainer, n, flash_cuda, bwd_cuda, label) -> list[dict]:
-    """``n`` Trainer steps one at a time: each step's record with its wall
-    ms (host clock, synchronised: ``run`` reads the metrics) and its flash
-    launches by route."""
-    out = []
-    for _ in range(n):
-        fwd0, bwd0 = dict(flash_cuda.launches_by_route), dict(bwd_cuda.launches_by_route)
-        sync(trainer.api.device)
-        t0 = time.perf_counter()
-        rec = dict(trainer.run(1)[-1])
-        rec["ms"] = (time.perf_counter() - t0) * 1e3
-        rec["flash"] = {r: c - fwd0[r] for r, c in flash_cuda.launches_by_route.items()}
-        rec["backward"] = {r: c - bwd0[r] for r, c in bwd_cuda.launches_by_route.items()}
-        log(f"{label} step {rec['step']}: loss {rec['loss']:.6f} grad norm "
-            f"{rec['grad_norm']:.6f} lr {rec['lr']:.4e} {rec['ms']:.1f} ms; flash "
-            f"forward launches {rec['flash']}, backward {rec['backward']}")
-        out.append(rec)
-    return out
-
-
-def profile_train_step(trainer, share: str = "flash_bwd",
-                       share_name: str = "flash backward") -> float:
+def profile_train_step(run_step, device, share: str = "flash_bwd",
+                       share_name: str = "flash backward") -> dict:
     """Device busy time (ms), the largest device items and the port's
-    kernels of one Trainer step, with the share of the busy time of the
-    port's kernels whose names start with ``share`` (``share_name``), from
-    a torch.profiler trace (device events only)."""
+    kernels of one train step (``run_step()``), with the time and share of
+    the busy time of the port's kernels whose names start with ``share``
+    (``share_name``), from a torch.profiler trace (device events only).
+    Returns {"busy": ms, "share_ms": ms}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    sync(trainer.api.device)
+    sync(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.run(1)
-        sync(trainer.api.device)
+        run_step()
+        sync(device)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
@@ -2317,7 +2390,7 @@ def profile_train_step(trainer, share: str = "flash_bwd",
         + "; port kernels: " + "; ".join(f"{name} {ms:.1f} ms x{count}"
                                         for name, (ms, count) in ours.items())
         + f"; {share_name} {part:.1f} ms ({100 * part / busy:.1f}% of busy)")
-    return busy
+    return {"busy": busy, "share_ms": part}
 
 
 def train_path(api, params, gen, seed, flash_cuda, bwd_cuda) -> dict:
@@ -2341,7 +2414,7 @@ def train_path(api, params, gen, seed, flash_cuda, bwd_cuda) -> dict:
     tcfg = TrainConfig(warmup_steps=2)
     dev = api.device
     batch0 = {k: torch.as_tensor(v).to(dev) for k, v in pipe.batch_at(0).items()}
-    gate = train_gate(api, params, batch0, flash_cuda, bwd_cuda)
+    gate = train_gate(api, params, batch0, TOL_TRAIN_GRADS, "wgmma")
     micro = micro_gate(api, params, batch0, tcfg)
     del batch0
     n, at = TRAIN["steps"], TRAIN["ckpt_at"]
@@ -2350,33 +2423,28 @@ def train_path(api, params, gen, seed, flash_cuda, bwd_cuda) -> dict:
     straight.ckpt = mgr
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+    want = flash_train_want(cfg, "wgmma")
     flash_cuda.launches, bwd_cuda.launches = 0, 0
     for fn in (flash_cuda, bwd_cuda):
         for r in fn.launches_by_route:
             fn.launches_by_route[r] = 0
-    recs = train_steps(straight, at, flash_cuda, bwd_cuda, "uninterrupted")
+    recs = counted_steps(lambda: straight.run(1)[-1], at, dev, want, "uninterrupted")
     info = mgr._history[-1]
     saved = tree_clone(straight.state())
     straight.ckpt = None
-    recs += train_steps(straight, n - at, flash_cuda, bwd_cuda, "uninterrupted")
+    recs += counted_steps(lambda: straight.run(1)[-1], n - at, dev, want, "uninterrupted")
     launches = {"flash_attention": dict(flash_cuda.launches_by_route),
                 "flash_attention_bwd": dict(bwd_cuda.launches_by_route)}
-    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
-    L = cfg.num_layers
-    want = [({"wgmma": 2 * L, "simt": 0}, {"wgmma": L, "simt": 0})] * n
+    peak = max(r["peak_gib"] for r in recs)
     losses = [r["loss"] for r in recs]
     log(f"uninterrupted run, {n} steps of {B} x {S}: losses {losses}; launches "
         f"{launches}; peak device memory {peak:.3f} GiB (state {at} steps in "
         "kept on the card for the resume check)")
-    if [(r["flash"], r["backward"]) for r in recs] != want:
-        raise SystemExit(f"train steps' flash launches (forward, backward by route) "
-                         f"differ from {want[0]} a step")
     k = TRAIN["mean_of"]
     first, last = np.mean(losses[:k]), np.mean(losses[-k:])
     log(f"loss, mean of the first {k} steps {first:.6f}, of the last {k} {last:.6f}")
-    if not (all(np.isfinite(losses)) and last < first):
-        raise SystemExit(f"training loss not finite or not falling: {losses}")
+    if not last < first:
+        raise SystemExit(f"training loss not falling: {losses}")
     log(f"checkpoint at step {info.step} through the Trainer's save_async: "
         f"{info.leaves} leaves, {info.nbytes / 1e9:.3f} GB written through the "
         f"DDS server in {info.wall_s:.2f} s ({info.nbytes / info.wall_s / 1e9:.3f} GB/s); "
@@ -2402,8 +2470,8 @@ def train_path(api, params, gen, seed, flash_cuda, bwd_cuda) -> dict:
     if not exact:
         raise SystemExit("the restored train state differs from the saved one")
     resumed.ckpt = None
-    again = train_steps(resumed, n - at - 1, flash_cuda, bwd_cuda, "resumed")
-    busy = profile_train_step(resumed)
+    again = counted_steps(lambda: resumed.run(1)[-1], n - at - 1, dev, want, "resumed")
+    busy = profile_train_step(lambda: resumed.run(1), dev)["busy"]
     again.append(dict(resumed.history[-1]))
     wall = statistics.median(r["ms"] for r in recs[1:] if r["step"] != at - 1)
     log(f"train step: wall {wall:.1f} ms (median of the uninterrupted steps "
@@ -2438,20 +2506,6 @@ def gla_leaves(g, cfg) -> dict:
         out.update({(f"tail {i}", n): t[n][i].float() for n in names
                     for i in range(t[n].shape[0])})
     return out
-
-
-def ssm_grad_reading(g, cfg, ref: dict, ref_norm: float) -> tuple[float, str]:
-    """Phase 15's gate reading: the worst over ``ref``'s leaves of
-    ||g - ref|| / ||ref||, and the global norms' relative difference; with
-    the leaf or norm that gave it."""
-    from repro_torch.optim.adamw import global_norm
-
-    got = gla_leaves(g, cfg)
-    per = {f"{k[0]} {k[1]}": (got[k] - r).norm().item() / r.norm().item()
-           for k, r in ref.items()}
-    per["global norm"] = abs(global_norm(g).item() - ref_norm) / ref_norm
-    worst = max(per, key=per.get)
-    return per[worst], worst
 
 
 def gla_bwd_faults(chunk: int = 128) -> dict:
@@ -2539,7 +2593,7 @@ def ssm_train_gate(api, params, batch, step: int) -> float:
     sync(api.device)
     kernel_s = time.perf_counter() - t0
     launches = routes_since(before)
-    reading, worst = ssm_grad_reading(g, cfg, ref, ref_norm)
+    reading, worst = grad_reading(g, gla_leaves(g, cfg), ref, ref_norm)
     del g
     log(f"{cfg.name} gradient gate: step {step}'s gradients of {len(ref)} leaves "
         f"({', '.join(sorted({n for _, n in ref}))}) and the global norm "
@@ -2559,7 +2613,7 @@ def ssm_train_gate(api, params, batch, step: int) -> float:
         for name, fault in gla_bwd_faults().items():
             GK.GlaScanFn.backward = planted(fault)
             _, g = value_and_grad(api, params, batch)
-            r, worst = ssm_grad_reading(g, cfg, ref, ref_norm)
+            r, worst = grad_reading(g, gla_leaves(g, cfg), ref, ref_norm)
             del g
             log(f"{cfg.name} gradient gate, planted fault ({name}): {r:.4e} at {worst} "
                 f"(must fail: {'fails' if r > tol else 'passes'} the limit)")
@@ -2568,6 +2622,35 @@ def ssm_train_gate(api, params, batch, step: int) -> float:
     finally:
         GK.GlaScanFn.backward = staticmethod(real)
     return reading
+
+
+def counted_steps(run_step, n: int, device, want: dict, label: str) -> list[dict]:
+    """``n`` train steps (``run_step()`` returns a step's record) one at a
+    time: each record with its wall ms (host clock, synchronised: the
+    records read the metrics), its peak device memory and its launches by
+    route of ``want``'s kernels, which must equal ``want``; the losses must
+    be finite."""
+    on_card = device.type == "cuda"
+    recs = []
+    for _ in range(n):
+        before = routes_now()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        sync(device)
+        t0 = time.perf_counter()
+        rec = dict(run_step())
+        rec["ms"] = (time.perf_counter() - t0) * 1e3
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+        rec["launches"] = {k: v for k, v in routes_since(before).items() if k in want}
+        log(f"{label} step {rec['step']}: loss {rec['loss']:.6f} grad norm "
+            f"{rec['grad_norm']:.6f} lr {rec['lr']:.4e} {rec['ms']:.1f} ms peak "
+            f"{rec['peak_gib']:.3f} GiB; launches {rec['launches']}")
+        recs.append(rec)
+    if any(r["launches"] != want for r in recs):
+        raise SystemExit(f"{label} train steps' launches differ from {want} a step")
+    if not all(np.isfinite(r["loss"]) for r in recs):
+        raise SystemExit(f"{label} training loss not finite: {[r['loss'] for r in recs]}")
+    return recs
 
 
 def ssm_train_path(api, params, seed) -> dict:
@@ -2582,39 +2665,24 @@ def ssm_train_path(api, params, seed) -> dict:
 
     cfg, B, S, dev = api.cfg, SSM_TRAIN["B"], SSM_TRAIN["S"], api.device
     pipe = TokenPipeline(BatchSpec(B, S, cfg.vocab_size), seed, structured=True)
-    on_card = dev.type == "cuda"
     trainer = Trainer(api, TrainConfig(warmup_steps=2), pipe, params=params)
     del params
     want = ssm_train_want(cfg)
-    recs, gate = [], None
-    for _ in range(SSM_TRAIN["steps"]):
-        if trainer.step == SSM_GATE_STEP[cfg.name]:
-            batch = {k: torch.as_tensor(v).to(dev)
-                     for k, v in pipe.batch_at(trainer.step).items()}
-            gate = ssm_train_gate(api, trainer.params, batch, trainer.step)
-            del batch
-            if on_card:
-                torch.cuda.empty_cache()
-        before = routes_now()
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
-        sync(dev)
-        t0 = time.perf_counter()
-        rec = dict(trainer.run(1)[-1])
-        rec["ms"] = (time.perf_counter() - t0) * 1e3
-        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
-        rec["launches"] = routes_since(before)
-        log(f"{cfg.name} step {rec['step']}: loss {rec['loss']:.6f} grad norm "
-            f"{rec['grad_norm']:.6f} lr {rec['lr']:.4e} {rec['ms']:.1f} ms peak "
-            f"{rec['peak_gib']:.3f} GiB; launches {rec['launches']}")
-        recs.append(rec)
+    gate_at = SSM_GATE_STEP[cfg.name]
+
+    def run_step():
+        return trainer.run(1)[-1]
+
+    recs = counted_steps(run_step, gate_at, dev, want, cfg.name)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in pipe.batch_at(gate_at).items()}
+    gate = ssm_train_gate(api, trainer.params, batch, gate_at)
+    del batch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    recs += counted_steps(run_step, SSM_TRAIN["steps"] - gate_at, dev, want, cfg.name)
     bwd_launches = sum(r["launches"]["gla_scan_bwd"]["mma"] for r in recs)
     losses = [r["loss"] for r in recs]
-    if any(r["launches"] != want for r in recs):
-        raise SystemExit(f"{cfg.name} train steps' launches differ from {want} a step")
-    if not all(np.isfinite(losses)):
-        raise SystemExit(f"{cfg.name} training loss not finite: {losses}")
-    busy = profile_train_step(trainer, "gla_bwd", "gla_scan backward")
+    busy = profile_train_step(run_step, dev, "gla_bwd", "gla_scan backward")["busy"]
     wall = statistics.median(r["ms"] for r in recs[1:])
     log(f"{cfg.name} L{cfg.num_layers} train step at {B} x {S}: wall {wall:.1f} ms "
         f"(median of the steps but the first), device busy {busy:.1f} ms (idle "
@@ -2622,6 +2690,104 @@ def ssm_train_path(api, params, seed) -> dict:
         f"{np.mean(losses[:3]):.6f}, of the last 3 {np.mean(losses[-3:]):.6f}); "
         f"peak {max(r['peak_gib'] for r in recs):.3f} GiB")
     return {"launches": bwd_launches, "gate": gate, "wall_ms": wall, "busy_ms": busy}
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: gemma3_4b and seamless_m4t_medium train.
+# ---------------------------------------------------------------------------
+
+
+def train16_report(cfg, recs, prof, shape: str) -> dict:
+    """Phase 16's summary of one model's steps and profiled step: wall ms
+    (median of the steps but the first), device busy and idle share, the
+    flash backward's ms and share of busy time, peak memory (which must stay
+    below the card's)."""
+    wall = statistics.median(r["ms"] for r in recs[1:])
+    busy, bwd = prof["busy"], prof["share_ms"]
+    peak = max(r["peak_gib"] for r in recs)
+    total = (torch.cuda.get_device_properties(0).total_memory / 2**30
+             if torch.cuda.is_available() else float("inf"))
+    losses = [r["loss"] for r in recs]
+    log(f"{cfg.name} train step at {shape}: wall {wall:.1f} ms (median of the "
+        f"steps but the first), device busy {busy:.1f} ms (idle "
+        f"{100 * (1 - busy / wall):.1f}%), flash backward "
+        f"({TRAIN16_BWD_ROUTE[cfg.name]}) {bwd:.1f} ms ({100 * bwd / busy:.1f}% of "
+        f"busy); losses {losses}; peak {peak:.3f} GiB of the card's {total:.3f}")
+    if not peak < total:
+        raise SystemExit(f"{cfg.name} train step's peak memory does not fit the card")
+    return {"wall_ms": wall, "busy_ms": busy, "bwd_ms": bwd, "peak_gib": peak,
+            "launches": recs[0]["launches"]["flash_attention_bwd"]}
+
+
+def gemma3_train_path(api, params, seed) -> dict:
+    """Phase 16, gemma3_4b: the gradient gate on the first microbatch of
+    the first batch, then ``GEMMA_TRAIN["steps"]`` steps of the in-place
+    Trainer (microbatch 8; flash launches by route held to 8 x (68 forward
+    on wgmma, 34 backward on simt) a step) and one profiled step."""
+    from repro_torch.data.pipeline import BatchSpec, TokenPipeline
+    from repro_torch.train.loop import TrainConfig, Trainer
+
+    cfg, dev = api.cfg, api.device
+    B, S, n_micro = GEMMA_TRAIN["B"], GEMMA_TRAIN["S"], GEMMA_TRAIN["microbatch"]
+    route = TRAIN16_BWD_ROUTE[cfg.name]
+    pipe = TokenPipeline(BatchSpec(B, S, cfg.vocab_size), seed, structured=True)
+    micro0 = {k: torch.as_tensor(v[:B // n_micro]).to(dev)
+              for k, v in pipe.batch_at(0).items()}
+    gate = train_gate(api, params, micro0, TOL_TRAIN16_GRADS[cfg.name], route)
+    del micro0
+    trainer = Trainer(api, TrainConfig(warmup_steps=2, microbatch=n_micro), pipe,
+                      params=params)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    def run_step():
+        return trainer.run(1)[-1]
+
+    recs = counted_steps(run_step, GEMMA_TRAIN["steps"], dev,
+                         flash_train_want(cfg, route, n_micro), cfg.name)
+    prof = profile_train_step(run_step, dev, "flash_bwd",
+                              f"flash backward ({route}, D {cfg.hd})")
+    return {"gate": gate, **train16_report(
+        cfg, recs, prof, f"{B} x {S} in {n_micro} microbatches")}
+
+
+def seamless_train_path(api, params, gen, seed) -> dict:
+    """Phase 16, seamless_m4t_medium: B 8 with seeded frames (from ``gen``:
+    the reference's pipeline yields tokens and labels only) and target
+    tokens from the structured stream; the gradient gate on the first
+    batch, then ``SEAMLESS_TRAIN["steps"]`` steps of the in-place
+    ``make_train_fn`` (flash launches by route held to 72 forward and 36
+    backward, all on wgmma, a step) and one profiled step."""
+    from repro_torch.data.pipeline import BatchSpec, TokenPipeline
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.loop import TrainConfig, make_train_fn
+
+    cfg, dev = api.cfg, api.device
+    B, S_enc, S, n = (SEAMLESS_TRAIN[k] for k in ("B", "S_enc", "S", "steps"))
+    route = TRAIN16_BWD_ROUTE[cfg.name]
+    pipe = TokenPipeline(BatchSpec(B, S, cfg.vocab_size), seed, structured=True)
+    frames = torch.randn(n + 1, B, S_enc, cfg.d_model, generator=gen,
+                         device=gen.device).to(torch.bfloat16)
+
+    def batch_at(step):
+        return {**{k: torch.as_tensor(v).to(dev) for k, v in pipe.batch_at(step).items()},
+                "frames": frames[step]}
+
+    gate = train_gate(api, params, batch_at(0), TOL_TRAIN16_GRADS[cfg.name], route)
+    step_fn = make_train_fn(api, TrainConfig(warmup_steps=2), donate=True)
+    state = {"opt": adamw_init(params), "step": 0}
+
+    def run_step():
+        step = state["step"]
+        _, state["opt"], _, metrics = step_fn(params, state["opt"], None,
+                                              batch_at(step), step)
+        state["step"] = step + 1
+        return {"step": step, **{k: float(v) for k, v in metrics.items()}}
+
+    recs = counted_steps(run_step, n, dev, flash_train_want(cfg, route), cfg.name)
+    prof = profile_train_step(run_step, dev, "flash_bwd", f"flash backward ({route})")
+    return {"gate": gate, **train16_report(
+        cfg, recs, prof, f"{B} x {S} tokens over {S_enc} frames")}
 
 
 def main() -> int:
@@ -2706,7 +2872,8 @@ def main() -> int:
     del timer
     for arch in ("tinyllama_1p1b",) + MOE_ARCHS + ("qwen2_vl_72b",):
         check_reduced_against_cpu(arch, args.seed)
-    for arch in ("tinyllama_1p1b", MOE_ARCHS[0], "rwkv6_7b", "zamba2_1p2b"):
+    for arch in ("tinyllama_1p1b", MOE_ARCHS[0], "rwkv6_7b", "zamba2_1p2b",
+                 "gemma3_4b", "seamless_m4t_medium", "qwen2_vl_72b"):
         check_reduced_grads_against_cpu(arch, args.seed)
     for arch in ("rwkv6_7b", "zamba2_1p2b", "seamless_m4t_medium", "gemma3_4b"):
         check_reduced_api_against_cpu(arch, args.seed)
@@ -2878,6 +3045,23 @@ def main() -> int:
         del api, params
         torch.cuda.empty_cache()
         log(f"{arch} training phase {time.perf_counter() - t_phase:.1f} s")
+
+    # 16. gemma3_4b and seamless_m4t_medium train at full width and depth,
+    # from a generator of their own (the gate's limits are readings at its
+    # draw)
+    train16 = {}
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    for arch in ("gemma3_4b", "seamless_m4t_medium"):
+        t_phase = time.perf_counter()
+        api = build_model(get_config(arch))
+        params, _ = api.init(gen)
+        log(f"{arch}: weights {weights_ms(params) * H100_BYTES_PER_S / 1e12:.3f} GB")
+        train16[arch] = (gemma3_train_path(api, params, args.seed)
+                         if arch == "gemma3_4b" else
+                         seamless_train_path(api, params, gen, args.seed))
+        del api, params
+        torch.cuda.empty_cache()
+        log(f"{arch} training phase {time.perf_counter() - t_phase:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     entries = []
@@ -2906,7 +3090,12 @@ def main() -> int:
             # the gradient of the Pallas forward, likewise; launches of phase
             # 15's rwkv6_7b steps
             ("gla_scan_bwd", gla_bwd["rwkv6_7b training"], ssm_train["rwkv6_7b"]["launches"],
-             "gla_scan_bwd_mma", "src/repro/kernels/ssm_scan/kernel.py:76")):
+             "gla_scan_bwd_mma", "src/repro/kernels/ssm_scan/kernel.py:76"),
+            # the flash backward at gemma3_4b's D 320, on CUDA cores; launches
+            # of one phase 16 step (8 microbatches of 34 layers)
+            ("flash_attention_bwd@gemma3_4b", flash_bwd["gemma3_4b training, local layers"],
+             train16["gemma3_4b"]["launches"]["simt"], "flash_attention_bwd",
+             "src/repro/kernels/flash_attention/kernel.py:96")):
         entries.append({
             "name": kname, "route": "cuda", "case": str(row["case"]),
             "kernel_route": row["route"][0],

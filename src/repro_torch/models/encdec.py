@@ -23,11 +23,17 @@ carries on in fp32 from there, casting each block's normed input to the
 weights' dtype where JAX would promote it.  That fault of the reference is
 not copied (ROADMAP.md, Queue 3).
 
+With ``remat`` (the default of ``encode``, ``dec_forward`` and
+``encdec_forward``, as in the reference) each layer body goes through
+``layers.maybe_remat`` at ``cfg.remat``: the backward recomputes the layer
+from its input, the decoder's cross K/V projections included.  Prefill
+encodes without it, as the reference's does.
+
 Entry points:
-  init_encdec(cfg, generator, device)            -> (params, axes)
-  encode(params, cfg, frames)                    -> encoder states
-  dec_forward(params, cfg, tokens, enc_states)   -> logits
-  encdec_forward(params, cfg, tokens, frames)    -> (logits, aux = 0)
+  init_encdec(cfg, generator, device)                   -> (params, axes)
+  encode(params, cfg, frames, remat)                    -> encoder states
+  dec_forward(params, cfg, tokens, enc_states, remat)   -> logits
+  encdec_forward(params, cfg, tokens, frames, remat)    -> (logits, aux = 0)
   encdec_init_cache(cfg, batch, cache_len, enc_len, ...) -> cache dict
   encdec_prefill(params, cfg, tokens, frames, cache_len) -> (logits, cache)
   encdec_decode_step(params, cfg, cache, kv_len, token)  -> (logits, cache)
@@ -108,16 +114,22 @@ def _positions(B: int, S: int, device, offset=0):
     return (torch.arange(S, device=device)[None] + offset).expand(B, S)
 
 
-def encode(params, cfg: ModelConfig, frames):
+def encode(params, cfg: ModelConfig, frames, remat: bool = True):
     """frames: (B, S_enc, d_model) stub embeddings -> encoder states."""
     B, S, _ = frames.shape
     pos = _positions(B, S, frames.device)
     x = frames.to(torch.bfloat16)
     acfg = _self_cfg(cfg, False)
-    for blk in L.layer_views(params["encoder"], cfg.encoder_layers):
+
+    def body(x, blk):
         a, _ = L.attention_fwd(blk["attn"], _ln(blk, "norm1", x), acfg, pos)
         x = x + a
-        x = x + L.mlp_fwd(blk["mlp"], _ln(blk, "norm2", x), cfg.mlp)
+        return x + L.mlp_fwd(blk["mlp"], _ln(blk, "norm2", x), cfg.mlp)
+
+    if remat:
+        body = L.maybe_remat(body, cfg.remat)
+    for blk in L.layer_views(params["encoder"], cfg.encoder_layers):
+        x = body(x, blk)
     return x
 
 
@@ -155,20 +167,29 @@ def _final(params, x):
                          L.rms_norm(x, params["final_norm"]))
 
 
-def dec_forward(params, cfg: ModelConfig, tokens, enc_states):
+def dec_forward(params, cfg: ModelConfig, tokens, enc_states,
+                remat: bool = True):
     """Teacher-forced decoder over the full target sequence -> logits."""
     B, S = tokens.shape
     pos = _positions(B, S, tokens.device)
     x = L.embed_fwd(params["embedding"], tokens)
-    for blk in L.layer_views(params["decoder"], cfg.decoder_layers):
+
+    def body(x, blk):
         ck, cv = _cross_kv(blk, cfg, enc_states)
-        x, _ = _dec_block(blk, cfg, x, pos, ck, cv)
+        return _dec_block(blk, cfg, x, pos, ck, cv)[0]
+
+    if remat:
+        body = L.maybe_remat(body, cfg.remat)
+    for blk in L.layer_views(params["decoder"], cfg.decoder_layers):
+        x = body(x, blk)
     return _final(params, x)
 
 
-def encdec_forward(params, cfg: ModelConfig, tokens, frames):
-    """Forward pass (no training step yet): returns (logits, aux = 0.0)."""
-    logits = dec_forward(params, cfg, tokens, encode(params, cfg, frames))
+def encdec_forward(params, cfg: ModelConfig, tokens, frames,
+                   remat: bool = True):
+    """The training forward: returns (logits, aux = 0.0)."""
+    logits = dec_forward(params, cfg, tokens, encode(params, cfg, frames, remat),
+                         remat)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
@@ -190,7 +211,7 @@ def encdec_prefill(params, cfg: ModelConfig, tokens, frames,
     """Encode the source and prefill the decoder prompt.  Returns (logits
     of the last position, cache): self K/V over ``cache_len`` positions,
     zero past the prompt; cross K/V over the frames' length."""
-    enc = encode(params, cfg, frames)
+    enc = encode(params, cfg, frames, remat=False)
     B, S = tokens.shape
     cache_len = cache_len or S
     pos = _positions(B, S, tokens.device)

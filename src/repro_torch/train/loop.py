@@ -9,7 +9,8 @@ Port of the single-device part of ``repro.train.loop``:
   * optional microbatch gradient accumulation, into fp32 zeros as in the
     reference, so accumulated gradients are fp32 (with one microbatch they
     keep the parameters' dtype);
-  * AdamW with global-norm clipping;
+  * AdamW with global-norm clipping, out of place or, for ``Trainer``, in
+    place (``make_train_fn(..., donate=True)``);
   * optional int8 error-feedback compression of the gradients
     (``compress_pod_grads``), compressed and decompressed on one device.
 
@@ -82,7 +83,7 @@ def compute_grads(api: ModelAPI, tcfg: TrainConfig, params: Any,
     """(gradient tree, loss) of one step's batch.  With ``microbatch`` > 1
     the batch is split and the gradients summed into fp32 zeros, as the
     reference's scan carry (in place, the same sums as its out-of-place
-    adds, to hold one accumulator and not two), then scaled by
+    adds, to hold one accumulator and not two), then scaled in place by
     1 / microbatch: fp32 gradients.  With 1 they keep the parameters'
     dtypes."""
     if tcfg.microbatch == 1:
@@ -98,12 +99,22 @@ def compute_grads(api: ModelAPI, tcfg: TrainConfig, params: Any,
         loss_sum = loss if loss_sum is None else loss_sum + loss
         del gi
     inv = 1.0 / tcfg.microbatch
-    return tree_map(lambda x: x * inv, g), loss_sum * inv
+    return tree_map(lambda x: x.mul_(inv), g), loss_sum * inv
 
 
-def make_train_fn(api: ModelAPI, tcfg: TrainConfig) -> Callable:
+def make_train_fn(api: ModelAPI, tcfg: TrainConfig,
+                  donate: bool = False) -> Callable:
     """(params, opt_state, comp_state, batch, step) -> (params, opt_state,
-    comp_state, metrics), where ``step`` is an int."""
+    comp_state, metrics), where ``step`` is an int.
+
+    ``donate=False``: out of place, as the reference's step; the given
+    params and moments are left as they were.  ``donate=True`` (after
+    ``jax.jit``'s ``donate_argnums``): the step writes the new params and
+    moments into the tensors it was given and returns those same trees,
+    so the device holds one copy of the state; the bits are those of the
+    out-of-place step.  A write-behind checkpoint cannot race it:
+    ``CheckpointManager.save_async`` takes its host copy before it
+    returns."""
 
     def lr_fn(step):
         return warmup_cosine(step, peak_lr=tcfg.peak_lr,
@@ -120,7 +131,7 @@ def make_train_fn(api: ModelAPI, tcfg: TrainConfig) -> Callable:
         new_params, new_opt, gnorm = adamw_update(
             grads, opt_state, params, lr,
             b1=tcfg.b1, b2=tcfg.b2, weight_decay=tcfg.weight_decay,
-            max_grad_norm=tcfg.max_grad_norm)
+            max_grad_norm=tcfg.max_grad_norm, donate=donate)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
         return new_params, new_opt, comp_state, metrics
 
@@ -133,7 +144,8 @@ def init_train_state(api: ModelAPI, tcfg: TrainConfig,
     """(params, AdamW state, compression state or None, axes).
 
     ``params`` given (a JAX tree through ``interop.to_torch``, or a copy)
-    are used as they are, and axes is then None; else ``api.init``
+    are used as they are (``Trainer``'s steps then update them in place),
+    and axes is then None; else ``api.init``
     draws them from ``generator`` (seed 0 on the model's device by
     default).  With ``compress_pod_grads`` the compression state is a
     ``CompressionState``: the reference wraps it in a 1-tuple, which its
@@ -148,7 +160,9 @@ def init_train_state(api: ModelAPI, tcfg: TrainConfig,
 
 
 class Trainer:
-    """End-to-end driver: pipeline -> train step -> DDS checkpoints."""
+    """End-to-end driver: pipeline -> train step -> DDS checkpoints.  Its
+    step updates ``params``, ``opt.mu`` and ``opt.nu`` in place
+    (``make_train_fn(..., donate=True)``)."""
 
     def __init__(self, api: ModelAPI, tcfg: TrainConfig, pipeline,
                  checkpoint_mgr=None, ckpt_every: int = 100,
@@ -162,7 +176,7 @@ class Trainer:
             api, tcfg, generator, params)
         self.step = 0
         self.history: list[dict] = []
-        self._step_fn = make_train_fn(api, tcfg)
+        self._step_fn = make_train_fn(api, tcfg, donate=True)
 
     def state(self) -> dict:
         """What a checkpoint holds: ``{params, mu, nu}``."""

@@ -17,6 +17,9 @@ and grad norms (started from the same fp32 parameters) within 1e-4
 relative: Adam divides by sqrt(v), so a gradient element near zero turns
 a last-digit difference into a visible one, and the steps carry it on.
 
+The Trainer's in-place step (``make_train_fn(..., donate=True)``) is
+bit-equal to the out-of-place one, on the storage it was given.
+
 Also: remat recomputes every layer in the backward (the attention and
 gla_scan calls counted; Zamba2's tail is not rematerialized, as in the
 reference) and leaves the gradients bit for bit; a port of
@@ -55,12 +58,12 @@ from repro_torch.interop import to_torch
 from repro_torch.models import layers as TL
 from repro_torch.models import ssm as SSM
 from repro_torch.models.registry import build_model
-from repro_torch.optim import AdamWState
+from repro_torch.optim import AdamWState, adamw_init
 from repro_torch.optim.compression import CompressionState
 from repro_torch.storage.checkpoint import CheckpointManager
 from repro_torch.train import loop
 from repro_torch.train.loop import TrainConfig, Trainer, value_and_grad
-from repro_torch.tree import leaf_paths
+from repro_torch.tree import leaf_paths, tree_clone, tree_map
 
 CPU = "cpu"
 B, S = 2, 16
@@ -256,6 +259,45 @@ def test_accumulated_gradients_are_fp32(microbatch, dtype):
         for (_, a), (_, b0), (_, b1) in zip(leaf_paths(g), leaf_paths(halves[0][1]),
                                             leaf_paths(halves[1][1])):
             assert torch.equal(a, (b0.float() + b1.float()) * 0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("microbatch", [1, 2])
+@pytest.mark.parametrize("arch", ["tinyllama_1p1b", "gemma3_4b"])
+def test_in_place_step_is_bit_equal_to_out_of_place(arch, microbatch, dtype):
+    """Three steps of ``make_train_fn(..., donate=True)`` (the Trainer's
+    step) against the out-of-place step from the same state, with a clip
+    that acts: the same parameters, moments, loss and grad norm bit for
+    bit; the in-place step returns the trees and storage it was given, and
+    the out-of-place step leaves its inputs as they were."""
+    cfg, _ = _cfgs(arch)
+    api = build_model(cfg, CPU)
+    params, _ = api.init(torch.Generator().manual_seed(0))
+    params = tree_map(lambda t: t.to(dtype), params)
+    tcfg = TrainConfig(peak_lr=3e-3, warmup_steps=2, total_steps=30,
+                       max_grad_norm=0.05, microbatch=microbatch)
+    out_state = (tree_clone(params), adamw_init(params))
+    in_p = tree_clone(params)
+    in_state = (in_p, adamw_init(params))
+    storage = [t.data_ptr() for _, t in leaf_paths((in_p, in_state[1].mu, in_state[1].nu))]
+    out_fn, in_fn = loop.make_train_fn(api, tcfg), loop.make_train_fn(api, tcfg, donate=True)
+    for step in range(3):
+        batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, seed=step).items()}
+        given = tree_clone(out_state)
+        p, opt, _, om = out_fn(*out_state, None, batch, step)
+        for (path, a), (_, b) in zip(leaf_paths(out_state), leaf_paths(given)):
+            assert torch.equal(a, b), path
+        out_state = (p, opt)
+        p, opt, _, im = in_fn(*in_state, None, batch, step)
+        assert p is in_p and opt.mu is in_state[1].mu and opt.nu is in_state[1].nu
+        in_state = (p, opt)
+        assert float(om["grad_norm"]) > tcfg.max_grad_norm
+        for key in ("loss", "grad_norm"):
+            assert torch.equal(om[key], im[key]), key
+        assert int(opt.count) == int(out_state[1].count) == step + 1
+        for (path, a), (_, b) in zip(leaf_paths(out_state), leaf_paths(in_state)):
+            assert a.dtype == b.dtype and torch.equal(a, b), path
+        assert [t.data_ptr() for _, t in leaf_paths((p, opt.mu, opt.nu))] == storage
 
 
 def test_tinyllama_short_training_descends():
