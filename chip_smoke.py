@@ -10,8 +10,9 @@ Phases, each of which exits non-zero on failure:
      each, all started together) into build/torch_kernels/, count the
      tensor-core instructions in the SASS of the bf16 flash library (HGMMA,
      also in its D 320 instance alone), of the tensor-core flash backward's
-     D 64 and D 128 instances (HGMMA, with ptxas's registers and spills of
-     each) and of the bf16 gla_scan forward and backward libraries (HMMA),
+     D 64, D 128 and D 320 instances (HGMMA, with ptxas's registers and
+     spills of each) and of the bf16 gla_scan forward and backward
+     libraries (HMMA),
      and print ptxas's registers and spills of both flash libraries' D 320
      instances and of both gla_scan backwards' kernels (the CUDA-core one
      with its most registers and spills over all 54 instances);
@@ -35,12 +36,15 @@ Phases, each of which exits non-zero on failure:
      calls (B 1, S 2048, D 320) with its window and without, SeamlessM4T's
      encoder and cross-attention training calls (no mask, Sq 1024 and 256
      over Sk 1024), Sq != Sk at a q_offset and in fp32, each on
-     the route the backward's rule names (bf16 at D 64 and 128 on the
-     tensor cores with the forward's lse, D 320 and fp32 on CUDA cores):
-     max |err| over the largest |gradient| beside the tolerance, two calls
-     bit-equal, kernel, plain and SDPA-backward times and the bound (2.5x
-     the forward's operations), and on the tensor-core rows the CUDA-core
-     kernel's time and error beside them; the gla_scan backward against
+     the route the backward's rule names (bf16 on the tensor cores with
+     the forward's lse, fp32 on CUDA cores): max |err| over the largest
+     |gradient| beside the tolerance, two calls bit-equal, kernel, plain
+     and SDPA-backward times and the bound (2.5x the forward's
+     operations), and on the tensor-core rows the CUDA-core kernel's time
+     and error beside them; at D 320 also each 64-key tile of dK and dV
+     and each 64-column block of dQ against its own largest |gradient|,
+     with two planted faults (the last key tile's dK/dV zeroed, dK's last
+     64 columns zeroed) that must fail that gate; the gla_scan backward against
      gla_scan_bwd_ref at RWKV6's training shape (B 8, H 64, S 2048, K = V
      = 64, bf16), Zamba2's (one decay per head, stride-0 w), a ragged S,
      strong decay (these four on the tensor cores) and fp32 at K = V = 32
@@ -146,8 +150,8 @@ Phases, each of which exits non-zero on failure:
      attention path (the planted faults of phase 14, two of which must fail
      that limit), then 10 steps (loss, grad norm, ms, peak memory, which
      must fit the card, and flash launches by route a step: gemma3_4b 8 x
-     (68 forward on wgmma, 34 backward on simt), SeamlessM4T 72 and 36, all
-     on wgmma) and one profiled step (device busy and idle share, largest
+     (68 forward and 34 backward), SeamlessM4T 72 and 36, all on wgmma) and
+     one profiled step (device busy and idle share, largest
      items, the flash backward's ms and share of busy time).
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
@@ -177,7 +181,8 @@ H100_FP32_FLOPS = 67e12         # fp32 on CUDA cores, H100 SXM data sheet
 # The port's kernels (src/repro_torch/csrc/*.cu), as the profiler names them.
 PORT_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_kernel",
                 "flash_bwd_delta_kernel", "flash_bwd_wgmma_dkdv_kernel",
-                "flash_bwd_wgmma_dq_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
+                "flash_bwd_wgmma_dkdv_split_kernel", "flash_bwd_wgmma_dq_kernel",
+                "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
                 "paged_attention_split_kernel", "paged_attention_kernel",
                 "gla_scan_mma_kernel", "gla_scan_kernel", "gla_bwd_mma_states_kernel",
                 "gla_bwd_mma_kernel", "gla_bwd_scan_kernel", "gla_bwd_dqk_kernel",
@@ -398,9 +403,9 @@ SSM_GATE_STEP = {"rwkv6_7b": 0, "zamba2_1p2b": 2}
 # 256 target tokens, through the in-place make_train_fn.
 GEMMA_TRAIN = dict(B=8, S=2048, microbatch=8, steps=10)
 SEAMLESS_TRAIN = dict(B=8, S_enc=1024, S=256, steps=10)
-# The flash backward's route in phase 16: the tensor cores at D 64, CUDA
-# cores at gemma3_4b's D 320 (kernels/flash_attention/kernel.py bwd_route).
-TRAIN16_BWD_ROUTE = {"gemma3_4b": "simt", "seamless_m4t_medium": "wgmma"}
+# The flash backward's route in phase 16: the tensor cores at D 64 and at
+# gemma3_4b's D 320 (kernels/flash_attention/kernel.py bwd_route).
+TRAIN16_BWD_ROUTE = {"gemma3_4b": "wgmma", "seamless_m4t_medium": "wgmma"}
 # Phase 16's gradient gate (train_gate on one microbatch of the first
 # batch): the wq/wk/wv/wo gradients of every attention layer (gemma3_4b's
 # window, global and tail layers; SeamlessM4T's encoder, decoder self- and
@@ -616,14 +621,14 @@ def ptxas_lines(log: str, marker: str) -> list[str]:
 
 
 def check_bwd_sass(report: dict) -> None:
-    """HGMMA in the SASS of the tensor-core flash backward's D 64 and D 128
-    instances, logged with ptxas's registers and spills of each (from
+    """HGMMA in the SASS of the tensor-core flash backward's D 64, D 128 and
+    D 320 instances, logged with ptxas's registers and spills of each (from
     ``report``, ``_build.build``'s, where this run built the library);
     raises at 0."""
     from repro_torch.kernels import _build
 
     lib = "flash_attention_bwd_wgmma"
-    for marker, dim in (("Li64E", 64), ("Li128E", 128)):
+    for marker, dim in (("Li64E", 64), ("Li128E", 128), ("Li320E", 320)):
         count = sass_count(_build.lib_path(lib), "HGMMA", marker)
         lines = (ptxas_lines(report[lib]["ptxas"], marker) if lib in report
                  else ["built before this run: no ptxas output"])
@@ -632,6 +637,17 @@ def check_bwd_sass(report: dict) -> None:
         if count == 0:
             raise SystemExit(f"the tensor-core flash backward's D {dim} instances "
                              "have no tensor-core (HGMMA) instruction")
+    if lib in report:
+        warnings = [line.strip() for line in report[lib]["ptxas"].splitlines()
+                    if "arning" in line or "Performance" in line]
+        log(f"ptxas -v, {lib}: " + ("; ".join(warnings) or "no warnings"))
+        # The D 320 dK/dV kernel's setmaxnreg budget (24 + 2 x 240 a thread of
+        # its three warpgroups) assumes it launches with 168 registers; with
+        # fewer its consumers would wait forever for registers.
+        regs = ptxas_lines(report[lib]["ptxas"], "flash_bwd_wgmma_dkdv_split_kernel")
+        if not any("Used 168 registers" in line for line in regs):
+            raise SystemExit("the D 320 dK/dV kernel does not launch with the 168 "
+                             f"registers its setmaxnreg budget assumes: {regs}")
 
 
 def gla_bwd_ptxas(report: dict) -> None:
@@ -1052,6 +1068,40 @@ def bwd_err(got, ref) -> float:
                for g, r in zip(got, ref))
 
 
+def tile_err(got, ref, tile: int = 64) -> tuple[float, str]:
+    """The per-tile gate of phase 3's D 320 rows: the worst over the 64-key
+    tiles of dK and dV and the 64-column blocks of dQ of max |err| over
+    that piece's own largest |value|, with the piece.  The D 320 backward
+    splits its work over key tiles, two warpgroups (dV, dK) and 64-column
+    blocks; a piece it dropped whose gradient is small (the last key tile
+    of a causal call, seen by the last 64 queries alone) passes a gate over
+    the whole tensor's largest |gradient|, not this one."""
+    dq, dk, dv = got
+    rq, rk, rv = ref
+    pieces = {}
+    for name, g, r in (("dK", dk, rk), ("dV", dv, rv)):
+        for t0 in range(0, g.shape[1], tile):
+            pieces[f"{name} keys {t0}+"] = (g[:, t0:t0 + tile], r[:, t0:t0 + tile])
+    for c0 in range(0, dq.shape[-1], tile):
+        pieces[f"dQ columns {c0}+"] = (dq[..., c0:c0 + tile], rq[..., c0:c0 + tile])
+    errs = {name: max_err(g, r) / max(r.float().abs().max().item(), 1e-30)
+            for name, (g, r) in pieces.items()}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def tile_faults() -> dict:
+    """Planted faults of the per-tile gate, applied to the kernel's (dq, dk,
+    dv): each drops one piece of the D 320 backward's split."""
+    def columns_zeroed(dq, dk, dv):
+        dk = dk.clone()
+        dk[..., -64:] = 0
+        return dq, dk, dv
+
+    name = "the last key tile's dK/dV zeroed"
+    return {name: bwd_faults()[name], "dK's last 64 columns zeroed": columns_zeroed}
+
+
 def flash_bwd_simt(q, k, v, o, do, *, causal, window, q_offset):
     """The CUDA-core flash backward (the simt route, the only one before the
     wgmma route) launched through its C entry point on a call the rule
@@ -1080,7 +1130,9 @@ def check_flash_bwd(timer, seed) -> dict:
     names asserted, the error beside its tolerance, two calls bit-equal,
     kernel, plain and SDPA-backward times and the bound; on the wgmma route
     the lse comes from the forward, as in training, and the CUDA-core
-    kernel is timed beside it.  Returns the rows by use."""
+    kernel is timed beside it; at D 320 also the per-tile gate
+    (``tile_err``), which ``tile_faults`` must fail.  Returns the rows by
+    use."""
     from torch.nn.attention import SDPBackend
 
     from repro_torch.kernels.flash_attention.kernel import (
@@ -1114,9 +1166,20 @@ def check_flash_bwd(timer, seed) -> dict:
         abs_err = max(max_err(g, r) for g, r in zip(got, ref))
         simt_err = (bwd_err(flash_bwd_simt(q, k, v, o, do, **kw), ref)
                     if route == "wgmma" else None)
-        del ref
         tol = TOL_BWD[dt]
-        ok = routed and same and err <= tol and all(
+        tiles = ""
+        tiles_ok = True
+        if D == 320:
+            tiles_err, piece = tile_err(got, ref)
+            faults = {name: (tile_err(fault(*got), ref), bwd_err(fault(*got), ref))
+                      for name, fault in tile_faults().items()}
+            tiles_ok = tiles_err <= tol and all(r > tol for (r, _), _ in faults.values())
+            tiles = (f"; per tile {tiles_err:.3e} at {piece} (tol {tol}); planted faults: "
+                     + "; ".join(f"{name} {r:.3e} at {at} ({'fails' if r > tol else 'PASSES'}"
+                                 f" the per-tile gate; {whole:.3e} over the whole tensor)"
+                                 for name, ((r, at), whole) in faults.items()))
+        del ref
+        ok = routed and same and err <= tol and tiles_ok and all(
             bool(torch.isfinite(t.float()).all()) for t in got)
         del got, again
         flops = 2.5 * 4 * D * B * Hq * flash_pairs(Sq, Sk, causal, window, q_off)
@@ -1160,14 +1223,15 @@ def check_flash_bwd(timer, seed) -> dict:
             f"|grad| (tol {tol}; {abs_err:.3e} absolute), two calls {'bit-equal' if same else 'DIFFER'}; "
             f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms library "
             f"{row['library_ms']} ms bound {bnd:.4f} ms ({by}: 2.5x the "
-            f"forward's operations){backend}{simt}")
+            f"forward's operations){backend}{simt}{tiles}")
         rows[use] = row
         del q, k, v, o, do, lse
         torch.cuda.empty_cache()
     if not all(r["ok"] for r in rows.values()):
-        raise SystemExit("flash backward kernel disagrees with its plain version, "
-                         "gives non-finite gradients, differs between two calls "
-                         "or took another route than the rule's")
+        raise SystemExit("flash backward kernel disagrees with its plain version "
+                         "(at D 320 also per tile, or a planted fault passes that "
+                         "gate), gives non-finite gradients, differs between two "
+                         "calls or took another route than the rule's")
     return rows
 
 
@@ -2723,7 +2787,7 @@ def gemma3_train_path(api, params, seed) -> dict:
     """Phase 16, gemma3_4b: the gradient gate on the first microbatch of
     the first batch, then ``GEMMA_TRAIN["steps"]`` steps of the in-place
     Trainer (microbatch 8; flash launches by route held to 8 x (68 forward
-    on wgmma, 34 backward on simt) a step) and one profiled step."""
+    and 34 backward, all on wgmma) a step) and one profiled step."""
     from repro_torch.data.pipeline import BatchSpec, TokenPipeline
     from repro_torch.train.loop import TrainConfig, Trainer
 
@@ -3091,10 +3155,11 @@ def main() -> int:
             # 15's rwkv6_7b steps
             ("gla_scan_bwd", gla_bwd["rwkv6_7b training"], ssm_train["rwkv6_7b"]["launches"],
              "gla_scan_bwd_mma", "src/repro/kernels/ssm_scan/kernel.py:76"),
-            # the flash backward at gemma3_4b's D 320, on CUDA cores; launches
-            # of one phase 16 step (8 microbatches of 34 layers)
+            # the flash backward at gemma3_4b's D 320 (two consumer
+            # warpgroups); launches of one phase 16 step (8 microbatches of
+            # 34 layers)
             ("flash_attention_bwd@gemma3_4b", flash_bwd["gemma3_4b training, local layers"],
-             train16["gemma3_4b"]["launches"]["simt"], "flash_attention_bwd",
+             train16["gemma3_4b"]["launches"]["wgmma"], "flash_attention_bwd_wgmma",
              "src/repro/kernels/flash_attention/kernel.py:96")):
         entries.append({
             "name": kname, "route": "cuda", "case": str(row["case"]),

@@ -1,11 +1,13 @@
 """The flash backward alone: chip_smoke.py's build check of the tensor-core
-backward (HGMMA in the SASS of its D 64 and D 128 instances, ptxas's
-registers and spills) and its phase-3 rows (``check_flash_bwd``: every
-``FLASH_BWD`` case against attention_bwd_ref on the route the rule names,
-two calls bit-equal, kernel, CUDA-core kernel, plain, SDPA-backward times
-and the bound), without the model phases, then each of the backward's
-kernels' device time at TinyLlama's training shape from a torch.profiler
-trace.  It holds the same limits as chip_smoke.py and exits non-zero where
+backward (HGMMA in the SASS of its D 64, D 128 and D 320 instances,
+ptxas's registers and spills) and its phase-3 rows (``check_flash_bwd``:
+every ``FLASH_BWD`` case against attention_bwd_ref on the route the rule
+names, two calls bit-equal, kernel, CUDA-core kernel, plain, SDPA-backward
+times and the bound; at D 320 the per-tile gate and its planted faults),
+without the model phases, then each of the backward's kernels' device
+time (delta, dK/dV, dQ) at TinyLlama's training shape and at gemma3_4b's
+two training calls (D 320, with the window and without) from a
+torch.profiler trace.  It holds the same limits as chip_smoke.py and exits non-zero where
 that would.  One card, about a minute with the build:
 
     python3 scripts/flash_bwd_bench.py [--seed N]
@@ -75,9 +77,12 @@ def main() -> int:
     CS.check_bwd_sass(_build.build(["flash_attention", "flash_attention_wgmma",
                                      "flash_attention_bwd", "flash_attention_bwd_wgmma"]))
     rows = CS.check_flash_bwd(CS.Timer(), args.seed)
-    split = kernel_split(*CS.FLASH_BWD[0][:9])
-    CS.log(f"backward kernels at {CS.FLASH_BWD[0][:9]}, ms a call: " + "; ".join(
-        f"{name} {ms:.4f}" for name, ms in split.items()))
+    split = {}
+    for case in CS.FLASH_BWD:
+        if case[-1].startswith(("tinyllama_1p1b training", "gemma3_4b training")):
+            split[case[-1]] = kernel_split(*case[:9])
+            CS.log(f"backward kernels at {case[:9]} ({case[-1]}), ms a call: " + "; ".join(
+                f"{name} {ms:.4f}" for name, ms in split[case[-1]].items()))
     print(json.dumps({"card": card, "rows": rows, "kernels": split}, default=str))
     return 0
 

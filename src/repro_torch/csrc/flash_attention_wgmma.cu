@@ -83,23 +83,6 @@ struct __align__(1024) Smem {
   uint64_t q_full;
 };
 
-// O += P V over keys [16 kk, 16 kk + 16): one wgmma of N = D up to D 128;
-// at D 320 one m64n64 per 64-column block of V, block c into o[32 c, 32 c + 32)
-// (so o[e] is column 8 (e >> 2) + 2 (lane % 4) + (e & 1) at every D).
-template <int D>
-__device__ __forceinline__ void pv_wgmma(float (&o)[D / 2], const uint32_t (&a)[4],
-                                         uint32_t v_base, int kk) {
-  if constexpr (D <= 128) {
-    wgmma_rs<D>(o, a, mnmajor_desc<D>(v_base, kBN, kk));
-  } else {
-    using T = Tile<D>;
-#pragma unroll
-    for (int c = 0; c < T::kBlocks; ++c)
-      wgmma_rs_m64n64k16(*reinterpret_cast<float(*)[32]>(o + 32 * c), a,
-                         mnmajor_desc<D>(v_base + c * kBN * T::kRowBytes, kBN, kk));
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, D == 320 ? 1 : D == 128 ? 2 : 3)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -234,7 +217,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
       const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
-      pv_wgmma<D>(o, a, v_base, kk);
+      wgmma_rs_wide<D>(o, a, v_base, kBN, kk);  // O += P V
     }
     wgmma_commit();
     wgmma_wait_all();

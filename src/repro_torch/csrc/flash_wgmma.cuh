@@ -58,18 +58,38 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// Key tiles any row of the query tile at q0 can see: [lo, lo + n * kBN).
+// Key tiles of `bn` keys any row of the query tile at q0 can see:
+// [lo, lo + n * bn).
 struct KeyRange {
   int lo, n;
 };
 
 __device__ __forceinline__ KeyRange key_range(int q0, int Sq, int Sk, int causal,
-                                              int window, int q_offset) {
+                                              int window, int q_offset, int bn = kBN) {
   const int q_first = q_offset + q0;
   const int q_last = q_offset + min(q0 + kBM, Sq) - 1;
   const int hi = causal ? min(Sk, q_last + 1) : Sk;
-  const int lo = window > 0 ? max(0, q_first - window + 1) / kBN * kBN : 0;
-  return {lo, hi > lo ? (hi - lo + kBN - 1) / kBN : 0};
+  const int lo = window > 0 ? max(0, q_first - window + 1) / bn * bn : 0;
+  return {lo, hi > lo ? (hi - lo + bn - 1) / bn : 0};
+}
+
+// d (64 x D, fp32) += a (64 x 16, bf16 pairs in registers) * rows
+// [16 kk, 16 kk + 16) of a tile of `rows` rows of D columns read MN-major:
+// one wgmma of N = D up to D 128; at D 320, which no wgmma shape spans, one
+// m64n64 per 64-column block c into d[32 c, 32 c + 32) (so d[e] is column
+// 8 (e >> 2) + 2 (lane % 4) + (e & 1) at every D).
+template <int D>
+__device__ __forceinline__ void wgmma_rs_wide(float (&d)[D / 2], const uint32_t (&a)[4],
+                                              uint32_t base, int rows, int kk) {
+  if constexpr (D <= 128) {
+    sm90::wgmma_rs<D>(d, a, mnmajor_desc<D>(base, rows, kk));
+  } else {
+    using T = Tile<D>;
+#pragma unroll
+    for (int c = 0; c < T::kBlocks; ++c)
+      sm90::wgmma_rs_m64n64k16(*reinterpret_cast<float(*)[32]>(d + 32 * c), a,
+                               mnmajor_desc<D>(base + c * rows * T::kRowBytes, rows, kk));
+  }
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

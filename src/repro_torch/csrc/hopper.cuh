@@ -60,6 +60,22 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// --- Registers --------------------------------------------------------------
+
+// Warpgroup-wide register reallocation: every warp of the warpgroup gives
+// up registers down to `kRegs` a thread, or takes them up to `kRegs` from
+// what others gave up (waiting until they have).  kRegs is a multiple of 8
+// in [24, 256]; the kernel's launch bounds fix the count it starts from.
+template <uint32_t kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kRegs));
+}
+
+template <uint32_t kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kRegs));
+}
+
 // --- TMA --------------------------------------------------------------------
 
 // Copy the box of `map` at coordinates (c0, c1, c2, c3), innermost first,

@@ -23,13 +23,14 @@ call.
 The backward (``flash_attention_bwd_cuda``) has two routes too, by the
 rule ``bwd_route``:
 
-  * ``wgmma`` (``csrc/flash_attention_bwd_wgmma.cu``) takes bfloat16 at D
-    32, 64 and 128: every product on the tensor cores, a dK/dV kernel with
-    the keys as wgmma's rows and a dQ kernel, P and dS rounded to bf16 in
-    registers, the log-sum-exp of each row from the forward;
-  * ``simt`` (``csrc/flash_attention_bwd.cu``) takes bfloat16 at D 320 and
-    every float32 call: fp32 FMAs on CUDA cores, the softmax statistics
-    recomputed.
+  * ``wgmma`` (``csrc/flash_attention_bwd_wgmma.cu``) takes every bfloat16
+    call (D 32, 64, 128 and 320): every product on the tensor cores, a
+    dK/dV kernel with the keys as wgmma's rows (at D 320 dK and dV on two
+    warpgroups, P^T passed between them in fp32 through shared memory) and
+    a dQ kernel, P and dS rounded to bf16, the log-sum-exp of each row from
+    the forward;
+  * ``simt`` (``csrc/flash_attention_bwd.cu``) takes every float32 call:
+    fp32 FMAs on CUDA cores, the softmax statistics recomputed.
 
 Neither uses atomics, so two calls give the same bits.  A call that
 autograd records goes through ``FlashAttentionFn``, whose forward is the
@@ -47,8 +48,7 @@ import torch
 from repro_torch.kernels import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-HEAD_DIMS = (32, 64, 128, 320)   # the head dims both forward sources compile
-WGMMA_BWD_HEAD_DIMS = (32, 64, 128)   # the tensor-core backward's
+HEAD_DIMS = (32, 64, 128, 320)   # the head dims every flash source compiles
 # route -> (library, C entry point, argument types)
 _LIBS = {"wgmma": ("flash_attention_wgmma", "flash_attention_wgmma_launch",
                    [_P] * 5 + [_I] * 9 + [_F, _P]),
@@ -58,7 +58,9 @@ _BWD_LIBS = {"wgmma": ("flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma_l
                        [_P] * 10 + [_I] * 9 + [_F, _P]),
              "simt": ("flash_attention_bwd", "flash_attention_bwd_launch",
                       [_P] * 10 + [_I] * 10 + [_F, _P])}
-_wgmma_ready: set[int] = set()   # devices whose shared-memory limit is set
+# devices whose shared-memory limits are set, by wgmma library
+_wgmma_ready: dict[str, set[int]] = {"flash_attention_wgmma": set(),
+                                     "flash_attention_bwd_wgmma": set()}
 
 
 def _check_kind(name: str, dtype: torch.dtype, head_dim: int) -> None:
@@ -77,12 +79,19 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
 
 
 def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The backward kernel a call takes: ``"wgmma"`` for bfloat16 at a head
-    dim in ``WGMMA_BWD_HEAD_DIMS``, ``"simt"`` for bfloat16 at D 320 and for
-    float32.  Raises as ``route`` does."""
+    """The backward kernel a call takes: ``"wgmma"`` for bfloat16 (at every
+    head dim of ``HEAD_DIMS``, D 320 included), ``"simt"`` for float32.
+    Raises as ``route`` does."""
     _check_kind("flash_attention_bwd_cuda", dtype, head_dim)
-    return ("wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_BWD_HEAD_DIMS
-            else "simt")
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+def _setup_once(lib: str, device: torch.device) -> None:
+    """Run the wgmma library's ``<lib>_setup`` (its shared-memory limits)
+    once per device, before its first launch there."""
+    if device.index not in _wgmma_ready[lib]:
+        _build.check(lib, _build.function(lib, f"{lib}_setup", [])())
+        _wgmma_ready[lib].add(device.index)
 
 
 def _check(name, q, k, v, window, rule) -> str:
@@ -110,8 +119,7 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, scale):
-        with_lse = (q.dtype == torch.bfloat16
-                    and q.shape[-1] in WGMMA_BWD_HEAD_DIMS)
+        with_lse = q.dtype == torch.bfloat16   # bwd_route's wgmma calls
         out, lse = flash_attention_fwd_cuda(q, k, v, causal=causal, window=window,
                                             q_offset=q_offset, scale=scale,
                                             with_lse=with_lse)
@@ -175,12 +183,9 @@ def flash_attention_fwd_cuda(q, k, v, *, causal: bool = True,
     if kind == "wgmma":
         ptrs.append(lse.data_ptr() if with_lse else None)
     with torch.cuda.device(q.device):
-        if kind == "wgmma" and q.device.index not in _wgmma_ready:
-            # once per device, at the first call, never inside a capture
-            # (DecodeGraph's warm-up makes that first call)
-            setup = _build.function(lib, "flash_attention_wgmma_setup", [])
-            _build.check(lib, setup())
-            _wgmma_ready.add(q.device.index)
+        if kind == "wgmma":
+            # never inside a capture: DecodeGraph's warm-up makes the first call
+            _setup_once(lib, q.device)
         code = fn(*ptrs, B, Sq, Sk, Hq, Hkv, D, int(causal), window or 0,
                   int(q_offset), float(scale),
                   torch.cuda.current_stream().cuda_stream)
@@ -247,6 +252,8 @@ def flash_attention_bwd_cuda(q, k, v, o, do, *, lse=None, causal: bool = True,
     lib, symbol, argtypes = _BWD_LIBS[kind]
     fn = _build.function(lib, symbol, argtypes)
     with torch.cuda.device(q.device):
+        if kind == "wgmma":
+            _setup_once(lib, q.device)
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                   lse.data_ptr(), delta.data_ptr(), *flags,

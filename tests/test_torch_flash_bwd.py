@@ -115,20 +115,26 @@ def test_flash_attention_xla_gradients_match_naive(case):
 def wgmma_bwd_emulation(q, k, v, o, do, *, causal, window, q_offset,
                         scale=None):
     """(dq, dk, dv) with the rounding points of the tensor-core backward,
-    ``src/repro_torch/csrc/flash_attention_bwd_wgmma.cu``, in fp32 torch:
+    ``src/repro_torch/csrc/flash_attention_bwd_wgmma.cu``, in fp32 torch,
+    at every head dim (at D 320 the dK/dV kernel splits its work over two
+    warpgroups, :540-601, at the same rounding points):
 
       * q, k, v, o, do are bf16; S = q k^T and dP = dO V^T accumulate in
-        fp32 (``wgmma_ss``, :251-258 in the dK/dV kernel, :443-450 in dQ);
+        fp32 (``wgmma_ss``, :322-326 in the dK/dV kernel, :540 at D 320,
+        :733-737 in dQ);
       * lse is the forward's fp32 log-sum-exp of the scaled, masked logits
-        (``flash_attention_wgmma.cu``:263-271), read in log2 units
-        (:203, :418); delta = rowsum(dO o O) in fp32 (:124-144);
-      * P = exp2(S scale log2(e) - lse log2(e)), 0 where masked (:278-285,
-        :467-473); dS = P (dP - delta) from the fp32 P (:287, :474);
-      * P and dS rounded to bf16 (:286-287, :474) before dV += P^T dO,
-        dK += dS^T Q and dQ += dS K, which accumulate in fp32 (:302-312,
-        :482-487), dK and dV over the G heads of a K/V head;
+        (``flash_attention_wgmma.cu``:246-252), read in log2 units
+        (:272, :488, :706); delta = rowsum(dO o O) in fp32 (:184-216);
+      * P = exp2(S scale log2(e) - lse log2(e)), 0 where masked (:347-354,
+        :563-568, :755-760); dS = P (dP - delta) from the fp32 P (:356,
+        :583-585, :762), at D 320 from the fp32 P that warpgroup V hands
+        to warpgroup K through shared memory (:570, :581);
+      * P and dS rounded to bf16 (:355-356, :571-572, :583-585, :762)
+        before dV += P^T dO, dK += dS^T Q and dQ += dS K, which accumulate
+        in fp32 (:373-380, :598-601, :772-774), dK and dV over the G heads
+        of a K/V head;
       * dK and dQ scaled in fp32, then each gradient rounded once to bf16
-        (:335-338, :504-505).
+        (:405-407, :620-625, :793).
     """
     def bf16(t):
         return t.to(torch.bfloat16).float()
@@ -167,13 +173,13 @@ def wgmma_bwd_emulation(q, k, v, o, do, *, causal, window, q_offset,
 WGMMA_BWD_TOL = 2e-2   # the bf16 kernel tolerance, of max |grad|
 
 
-@pytest.mark.parametrize("case", [c for c in FA_BWD_CASES if c[5] <= 128])
+@pytest.mark.parametrize("case", FA_BWD_CASES)
 def test_wgmma_bwd_emulation_matches_jax_vjp(case):
     """The tensor-core backward's arithmetic (``wgmma_bwd_emulation``)
     against ``jax.vjp`` of the JAX package's chunked path on the same
     bf16-rounded inputs (fp32 inside): within 2e-2 of each gradient's
-    largest |value|, over ``FA_BWD_CASES`` at the head dims that route
-    takes (D 32, 64, 128)."""
+    largest |value|, over ``FA_BWD_CASES``, every head dim of which that
+    route takes (D 32, 64, 128 and 320)."""
     def bf16(a):
         return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
 

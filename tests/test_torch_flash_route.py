@@ -1,9 +1,11 @@
 """The flash-attention wrapper's route rules, on the CPU: bfloat16 calls take
 the tensor-core kernel (``wgmma``), float32 calls the CUDA-core kernel
 (``simt``), and anything else raises before a kernel library is built or
-loaded; the backward's rule (``bwd_route``) is the same but for bfloat16 at
-D 320, which stays on the CUDA cores.  The kernels themselves are held
-against their plain versions on a card by ``test_torch_kernels_gpu.py``."""
+loaded; the backward's rule (``bwd_route``) is the same at every head dim,
+D 320 included, and an autograd call asks the forward for the log-sum-exp
+exactly where the backward takes the tensor cores.  The kernels themselves
+are held against their plain versions on a card by
+``test_torch_kernels_gpu.py``."""
 
 import pytest
 import torch
@@ -82,14 +84,49 @@ def test_autograd_guard_raises_before_the_device_check(monkeypatch):
     (torch.bfloat16, 32, "wgmma"),
     (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 320, "simt"),
+    (torch.bfloat16, 320, "wgmma"),
     *[(torch.float32, d, "simt") for d in K.HEAD_DIMS],
 ])
 def test_bwd_route_by_dtype_and_head_dim(dtype, head_dim, route):
-    """The backward takes the tensor cores for bfloat16 at D 32, 64 and 128;
-    D 320 (its dK and dV would need 320 fp32 registers a thread) and every
-    float32 call stay on the CUDA-core kernel."""
+    """The backward takes the tensor cores for bfloat16 at D 32, 64, 128
+    and 320 (there dK and dV on two warpgroups); every float32 call stays
+    on the CUDA-core kernel."""
     assert K.bwd_route(dtype, head_dim) == route
+
+
+@pytest.mark.parametrize("dtype,head_dim,with_lse", [
+    (torch.bfloat16, 320, True),
+    (torch.bfloat16, 64, True),
+    (torch.float32, 320, False),
+    (torch.float32, 64, False),
+])
+def test_autograd_forward_writes_lse_for_the_wgmma_backward(dtype, head_dim, with_lse,
+                                                           monkeypatch):
+    """``FlashAttentionFn`` asks the forward launch for each row's
+    log-sum-exp where ``bwd_route`` names the tensor-core backward (bfloat16,
+    D 320 included) and not where it names the CUDA-core one (float32), and
+    hands it to the backward launch.  The launches are replaced by
+    recorders, so this runs on CPU tensors."""
+    calls = {}
+
+    def fwd(q, k, v, *, with_lse=False, **kw):
+        calls["with_lse"] = with_lse
+        B, Sq, Hq, _ = q.shape
+        return torch.zeros_like(q), torch.zeros(B, Hq, Sq) if with_lse else None
+
+    def bwd(q, k, v, o, do, *, lse=None, **kw):
+        calls["lse"] = lse
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+
+    monkeypatch.setattr(K, "flash_attention_fwd_cuda", fwd)
+    monkeypatch.setattr(K, "flash_attention_bwd_cuda", bwd)
+    q = torch.zeros(1, 8, 2, head_dim, dtype=dtype, requires_grad=True)
+    k, v = (torch.zeros(1, 8, 1, head_dim, dtype=dtype, requires_grad=True)
+            for _ in range(2))
+    K.flash_attention_cuda(q, k, v).sum().backward()
+    assert calls["with_lse"] is with_lse
+    assert (calls["lse"] is not None) is with_lse
+    assert K.bwd_route(dtype, head_dim) == ("wgmma" if with_lse else "simt")
 
 
 @pytest.mark.parametrize("dtype,head_dim,error", [

@@ -151,8 +151,8 @@ def test_flash_attention_cuda_edge_shapes(case, dtype, cuda_device):
 # ---------------------------------------------------------------------------
 # Flash backward: the kernel against attention_bwd_ref on the same inputs,
 # max |err| of each gradient over its largest |value|, on the route
-# bwd_route names (bf16 at D 32, 64, 128: the tensor cores; bf16 at D 320
-# and fp32: the CUDA cores).
+# bwd_route names (bf16: the tensor cores, at D 320 with dK and dV on two
+# warpgroups; fp32: the CUDA cores).
 # ---------------------------------------------------------------------------
 
 
@@ -213,10 +213,12 @@ def test_flash_attention_bwd_cuda_is_deterministic(dtype, cuda_device):
 
 # B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset: rows that see no key
 # (every row: a window behind a large q_offset; some rows: the same window
-# nearer, or causal rows before the first key at a negative q_offset).
+# nearer, also at D 320, or causal rows before the first key at a negative
+# q_offset).
 FA_BWD_MASKED_CASES = [
     (1, 64, 64, 4, 2, 64, True, 16, 100),
     (1, 64, 64, 4, 2, 64, True, 16, 40),
+    (1, 64, 64, 4, 2, 320, True, 16, 40),
     (2, 64, 32, 8, 1, 64, True, None, -16),
 ]
 
