@@ -152,7 +152,18 @@ Phases, each of which exits non-zero on failure:
      must fit the card, and flash launches by route a step: gemma3_4b 8 x
      (68 forward and 34 backward), SeamlessM4T 72 and 36, all on wgmma) and
      one profiled step (device busy and idle share, largest
-     items, the flash backward's ms and share of busy time).
+     items, the flash backward's ms and share of busy time);
+ 17. the sharded entry points on a 1 x 1 ("data", "model") mesh over a
+     NCCL world of one (launch.mesh.make_test_mesh): phase 4's TinyLlama
+     weights through make_serve_fns' prefill (8 x 512 into 1024, 22 flash
+     launches on wgmma) and 8 dense decode steps, held to phase 4's eager
+     logits; then TinyLlama at full width and depth, B 8 x 2048 from the
+     structured stream, 3 steps of make_train_step's function against 3
+     of the single-device out-of-place make_train_fn from the same params,
+     moments and batches (loss, grad norm and params held to a limit,
+     bit-equal expected; 44 forward and 22 backward flash launches a step
+     on wgmma; peak memory within the card), and one profiled sharded
+     step: wall, device busy and idle share beside phase 14's step.
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
 """
@@ -338,6 +349,17 @@ FLASH_BWD = [(8, 2048, 2048, 32, 4, 64, True, None, 0, "bfloat16", "tinyllama_1p
 # over the largest |gradient| (the kernel tests' 2e-2 and 2e-5): bf16 in and
 # out, one rounding of each gradient; fp32 summation order.
 TOL_BWD = {"bfloat16": 2e-2, "float32": 2e-5}
+# Phase 17: the sharded entry points on a 1 x 1 mesh.  Serving: phase 4's
+# prefill (B 8 x S 512 into 1024) and its first 8 dense decode steps.
+# Training: TinyLlama at full width and depth, B 8 x 2048, 3 steps and a
+# profiled fourth.
+SHARDED = dict(S=512, cache_len=1024, decode=8, train_B=8, train_S=2048, steps=3)
+# On one rank the sharded path runs the same kernels on the same tensors,
+# so bit-equal results are expected; the limits allow a different choice
+# of library kernel: logits within phase 4's paged-vs-dense limit, and
+# loss, grad norm and params (over the largest |param|) within 1e-3.
+TOL_SHARDED_LOGITS = 0.25
+TOL_SHARDED_TRAIN = 1e-3
 # Phase 14: TinyLlama at full width and depth, B 8 x S 2048 (its published
 # context), 40 Trainer steps with a checkpoint after 34 (6 resumed).  At
 # the reference's lr (3e-4, 2 warmup steps) 6 steps do not descend: an H100
@@ -1503,7 +1525,7 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
     tokens = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=gen,
                            device=dev)
     with torch.inference_mode():
-        _, cache, prefill_s, prefill_counts = timed_prefill(
+        prefill_lg, cache, prefill_s, prefill_counts = timed_prefill(
             api, params, tokens, S, cache_len,
             {"flash_attention": flash_cuda, "paged_attention": paged_cuda},
             {"flash_attention": cfg.num_layers, "paged_attention": 0}, extra)
@@ -1609,7 +1631,8 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
                 profile_steps(label, step, S + steps - 2, 2,
                               *((None,) if label.endswith("prefill") else bound))
     return {"counts": counts, "paged": paged, "tokens": tokens,
-            "dense_logits": torch.stack(dense_logits)}
+            "dense_logits": torch.stack(dense_logits),
+            "prefill_logits": prefill_lg.float()}
 
 
 def moe_routing(api, params, cache0, paged0, tokens, S, steps) -> dict:
@@ -2545,7 +2568,8 @@ def train_path(api, params, gen, seed, flash_cuda, bwd_cuda) -> dict:
         raise SystemExit(f"resumed losses {[r['loss'] for r in again]} differ from "
                          f"the uninterrupted run's {losses[at:]}")
     log(f"resumed losses equal the uninterrupted run's bit for bit: {losses[at:]}")
-    return {"launches": launches, "gate": gate, "micro": micro}
+    return {"launches": launches, "gate": gate, "micro": micro, "wall": wall,
+            "busy": busy}
 
 
 # ---------------------------------------------------------------------------
@@ -2757,6 +2781,148 @@ def ssm_train_path(api, params, seed) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 17: the sharded entry points on a 1 x 1 NCCL mesh.
+# ---------------------------------------------------------------------------
+
+
+def full(t):
+    """A DTensor gathered whole (local on a 1 x 1 mesh); a tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def sharded_path(tiny, train14, seed, flash_cuda, bwd_cuda, card) -> None:
+    """Phase 17: a world of one over NCCL and its 1 x 1 ("data", "model")
+    mesh (``launch.mesh.make_test_mesh``).  Serving: phase 4's TinyLlama
+    weights (``tiny``) through ``make_serve_fns``' prefill (B x S into
+    phase 4's cache length, ``num_layers`` flash launches on wgmma) and
+    ``SHARDED["decode"]`` dense decode steps, held to phase 4's eager
+    logits.  Training at full width and depth from the structured stream:
+    ``SHARDED["steps"]`` steps of ``make_train_step``'s function and of the
+    single-device out-of-place ``make_train_fn`` from the same params,
+    moments and batches (launches by route a step held to phase 14's
+    want; peak memory within the card), their losses, grad norms and
+    params held to ``TOL_SHARDED_*``, then one profiled sharded step: its
+    wall and idle share beside phase 14's (``train14``)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import BatchSpec, TokenPipeline
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.serve.engine import make_serve_fns
+    from repro_torch.train.loop import (TrainConfig, abstract_init, make_train_fn,
+                                        make_train_step)
+    from repro_torch.tree import leaves
+
+    mesh = make_test_mesh()
+    log(f"phase 17 ({card}): {dist.get_backend()} world of {dist.get_world_size()}, "
+        f"mesh {tuple(mesh.mesh_dim_names)} {tuple(mesh.shape)} on "
+        f"{mesh.device_type}")
+    api = build_model(get_config("tinyllama_1p1b"))
+    cfg, dev = api.cfg, api.device
+    _, axes = abstract_init(api)
+    params = tree_to(tiny["params"], dev)
+    tokens = tiny["tokens"]
+    B, S, n = tokens.shape[0], SHARDED["S"], SHARDED["decode"]
+    pre, dec = make_serve_fns(api, mesh, axes, ShapeConfig("serve", "prefill", S, B))
+    batch = {"tokens": tokens[:, :S]}
+    prefill = pre(batch)
+    with torch.no_grad():
+        prefill(params, batch, SHARDED["cache_len"])   # sharding propagation, once
+        before = routes_now()
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch, SHARDED["cache_len"])
+        sync(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launched = routes_since(before)["flash_attention"]
+        step = dec(cache)
+        lgs, ms = [], []
+        for t in range(S, S + n):
+            t0 = time.perf_counter()
+            lg, cache = step(params, cache, t, tokens[:, t:t + 1])
+            lgs.append(full(lg).float())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        for label, fn in (("sharded prefill", lambda t: prefill(
+                params, batch, SHARDED["cache_len"])),
+                          ("sharded dense decode", lambda t: step(
+                              params, cache, t, tokens[:, t:t + 1]))):
+            profile_steps(f"{label} ({card})", fn, S + n - 2, 2,
+                          *((weights_ms(params),) if "decode" in label else ()))
+    e_pre = max_err(full(logits), tiny["prefill_logits"])
+    e_dec = max_err(torch.stack(lgs), tiny["dense_logits"][:n])
+    log(f"sharded serving ({card}): prefill {B} x {S} {prefill_ms:.3f} ms, flash "
+        f"launches {launched}; {n} dense decode steps (eager): the first "
+        f"{ms[0]:.3f} ms (sharding propagation), then {statistics.median(ms[1:]):.3f} "
+        f"ms/step (median); against phase 4's eager logits: prefill max|err| "
+        f"{e_pre:.4g}, decode {e_dec:.4g} (limit {TOL_SHARDED_LOGITS})")
+    if launched != {"wgmma": cfg.num_layers, "simt": 0}:
+        raise SystemExit(f"sharded prefill flash launches {launched}")
+    if not (max(e_pre, e_dec) <= TOL_SHARDED_LOGITS
+            and all(torch.isfinite(x).all() for x in lgs)):
+        raise SystemExit("sharded serving disagrees with phase 4's logits")
+    del cache, step, logits, lgs
+    torch.cuda.empty_cache()
+
+    Bt, St, steps = SHARDED["train_B"], SHARDED["train_S"], SHARDED["steps"]
+    pipe = TokenPipeline(BatchSpec(Bt, St, cfg.vocab_size), seed, structured=True)
+    tcfg = TrainConfig(warmup_steps=2)
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in pipe.batch_at(i).items()}
+               for i in range(steps + 1)]
+    plain = make_train_fn(api, tcfg)
+    p, o, ref = params, adamw_init(params), []
+    for i in range(steps):
+        p, o, _, m = plain(p, o, None, batches[i], i)
+        ref.append((float(m["loss"]), float(m["grad_norm"])))
+    ref_params = p
+    del o
+    torch.cuda.empty_cache()
+    run = make_train_step(api, mesh, axes, tcfg)[1](batches[0])
+    state = {"p": params, "o": adamw_init(params), "i": 0}
+
+    def one():
+        i = state["i"]
+        state["p"], state["o"], _, m = run(state["p"], state["o"], None, batches[i], i)
+        state["i"] += 1
+        return {"step": i, **{k: float(full(v)) for k, v in m.items()}}
+
+    want = flash_train_want(cfg, "wgmma")
+    torch.cuda.reset_peak_memory_stats()
+    recs = counted_steps(one, steps, dev, want, "sharded (1 x 1 mesh)")
+    got = [(r["loss"], r["grad_norm"]) for r in recs]
+    d_loss = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got, ref))
+    d_norm = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(got, ref))
+    big = max(t.float().abs().max().item() for t in leaves(ref_params))
+    d_par = max(max_err(full(a), b) for a, b in zip(leaves(state["p"]),
+                                                      leaves(ref_params))) / big
+    equal = d_loss == d_norm == d_par == 0.0
+    log(f"sharded vs single-device train steps ({card}), {steps} steps of "
+        f"{Bt} x {St}: losses {got} vs {ref}; largest relative difference of "
+        f"loss {d_loss:.3g}, grad norm {d_norm:.3g}, params {d_par:.3g} of the "
+        f"largest |param| (limits {TOL_SHARDED_TRAIN}): "
+        f"{'bit-equal' if equal else 'NOT bit-equal'}")
+    if max(d_loss, d_norm, d_par) > TOL_SHARDED_TRAIN:
+        raise SystemExit("the sharded train step disagrees with the single-device one")
+    del ref_params, p
+    peak = max(r["peak_gib"] for r in recs)
+    total = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    wall = statistics.median(r["ms"] for r in recs[1:])
+    busy = profile_train_step(one, dev)["busy"]
+    log(f"sharded train step ({card}): wall {wall:.1f} ms (median of steps 2-"
+        f"{steps}), device busy {busy:.1f} ms (idle {100 * (1 - busy / wall):.1f}%); "
+        f"phase 14's single-device step: wall {train14['wall']:.1f} ms, busy "
+        f"{train14['busy']:.1f} ms (idle {100 * (1 - train14['busy'] / train14['wall']):.1f}%); "
+        f"first sharded step {recs[0]['ms']:.1f} ms (sharding propagation); peak "
+        f"{peak:.3f} GiB of {total:.3f}")
+    if peak > total:
+        raise SystemExit("the sharded train step does not fit the card")
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
 # Phase 16: gemma3_4b and seamless_m4t_medium train.
 # ---------------------------------------------------------------------------
 
@@ -2961,6 +3127,10 @@ def main() -> int:
     log(f"kv paging: {kv['spills']} K pages of {kv['page_bytes']} bytes spilled "
         f"to the page store, {kv['fetches']} fetched back bit-exact, "
         f"{kv['offloaded']} offloaded reads")
+    # phase 17 serves these weights again, held to this phase's logits
+    tiny = {"params": tree_to(params, "cpu"), "tokens": main["tokens"],
+            "prefill_logits": main["prefill_logits"],
+            "dense_logits": main["dense_logits"]}
     del api, params, main
     torch.cuda.empty_cache()
 
@@ -3126,6 +3296,12 @@ def main() -> int:
         del api, params
         torch.cuda.empty_cache()
         log(f"{arch} training phase {time.perf_counter() - t_phase:.1f} s")
+
+    # 17. the sharded entry points on a 1 x 1 NCCL mesh
+    t_phase = time.perf_counter()
+    sharded_path(tiny, train, args.seed, flash_attention_cuda,
+                 flash_attention_bwd_cuda, card)
+    log(f"sharded phase {time.perf_counter() - t_phase:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     entries = []

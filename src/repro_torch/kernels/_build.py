@@ -19,6 +19,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch.distributed.tensor import DTensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -97,6 +98,16 @@ def check(name: str, code: int) -> None:
     if code != 0:
         msg = _libs[name].repro_cuda_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise if a DTensor reaches a kernel: the launch would read one
+    rank's shard as if it were the whole tensor.  Sharded calls go through
+    the dispatcher's ``local_map`` wrapper, which hands the kernel local
+    shards."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name}: got a DTensor; call the kernel through its "
+                        "dispatcher, which runs it on the local shards")
 
 
 def refuse_grad(name: str, *tensors) -> None:

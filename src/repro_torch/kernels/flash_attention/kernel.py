@@ -97,6 +97,7 @@ def _setup_once(lib: str, device: torch.device) -> None:
 def _check(name, q, k, v, window, rule) -> str:
     """The route of a call by ``rule``; raises on what the kernels do not
     take."""
+    _build.refuse_dtensor(name, q, k, v)
     B, Sq, Hq, D = q.shape
     Bk, Sk, Hkv, Dk = k.shape
     kind = rule(q.dtype, D)

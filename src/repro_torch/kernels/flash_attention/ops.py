@@ -10,13 +10,21 @@
   * ``naive``       — the ref oracle (tests only; materializes S^2).
 
 All implementations share semantics with ``ref.attention_ref``.
+
+DTensors (a sharded model's q, k, v) go through ``flash_attention_sharded``
+whatever the implementation: it runs the same dispatch on each rank's
+local shards under ``local_map``, so the card launches the kernel and the
+CPU runs the plain version on shards alike.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed.sharding import kernel_placements, model_rank
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -89,6 +97,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                     impl: str | None = None, block_q: int = 512,
                     block_k: int = 512):
     """GQA flash attention.  See ref.attention_ref for semantics."""
+    if isinstance(q, DTensor):
+        return flash_attention_sharded(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset, scale=scale, impl=impl,
+                                       block_q=block_q, block_k=block_k)
     if impl is None:
         impl = "cuda" if q.is_cuda else "xla_chunked"
     if impl == "cuda":
@@ -102,3 +114,49 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
         return attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, scale=scale)
     raise ValueError(f"unknown impl {impl}")
+
+
+def kv_heads_for_rank(k, v, rank: int, local_heads: int, group: int):
+    """The K/V heads that q heads ``[rank * local_heads, (rank + 1) *
+    local_heads)`` read, from whole K/V (B, S, Hkv, D), for a flash call on
+    those q heads alone: a contiguous slice where the q heads cover whole
+    groups or sit in one group, else one K/V head per q head."""
+    lo = rank * local_heads
+    if local_heads % group == 0 or group % local_heads == 0:
+        sl = slice(lo // group, (lo + local_heads - 1) // group + 1)
+        return k[:, :, sl], v[:, :, sl]
+    idx = torch.arange(lo, lo + local_heads, device=k.device) // group
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def flash_attention_sharded(q, k, v, **kw):
+    """``flash_attention`` on DTensors: each rank runs it on its local
+    shards (``local_map``), batch over the mesh's data-parallel axes and q
+    heads over ``model``, the sequence whole.  Where K/V heads do not
+    divide ``model`` they are gathered whole and each rank takes the K/V
+    heads its q heads read (``kv_heads_for_rank``); their gradients are
+    then partial sums over ``model``.  Returns a DTensor with q's local
+    placements."""
+    mesh = q.device_mesh
+    B, _, Hq, _ = q.shape
+    Hkv = k.shape[2]
+    qpl = kernel_placements(mesh, B, Hq, 2)
+    kvpl = kernel_placements(mesh, B, Hkv, 2)
+    rank, m = model_rank(mesh)
+    split_kv = Hq % m == 0 and Hkv % m != 0
+    if Hq % m:   # q heads whole on every rank: K/V too
+        kvpl = qpl
+    kv_grad = tuple(Partial() if split_kv and isinstance(p, Replicate) and a == "model"
+                    else p for a, p in zip(mesh.mesh_dim_names, kvpl))
+    q = q.redistribute(mesh, qpl)
+    k = k.redistribute(mesh, kvpl)
+    v = v.redistribute(mesh, kvpl)
+
+    def local(q, k, v):
+        if split_kv:
+            k, v = kv_heads_for_rank(k, v, rank, Hq // m, Hq // Hkv)
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+
+    return local_map(local, out_placements=list(qpl), in_placements=(qpl, kvpl, kvpl),
+                     in_grad_placements=(qpl, kv_grad, kv_grad),
+                     device_mesh=mesh)(q, k, v)

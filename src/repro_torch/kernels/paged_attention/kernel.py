@@ -74,6 +74,8 @@ def route(dtype: torch.dtype, G: int, D: int, page: int, alignment: int) -> str:
 def paged_attention_cuda(q, k_pages, v_pages, block_table, seq_lens,
                          scale: float | None = None):
     """q: (B, Hq, D); pools: (P, page, Hkv, D) -> (B, Hq, D), on the card."""
+    _build.refuse_dtensor("paged_attention_cuda", q, k_pages, v_pages,
+                          block_table, seq_lens)
     _build.refuse_grad("paged_attention_cuda", q, k_pages, v_pages)
     B, Hq, D = q.shape
     P, page, Hkv, Dk = k_pages.shape

@@ -86,6 +86,7 @@ def _check_kind(name, dtype, K, V, chunk) -> None:
 def _check_call(name, q, k, v, w, chunk) -> None:
     """The checks both directions make of q, k, v and w; raise TypeError
     or ValueError, naming ``name``, for a call neither kernel takes."""
+    _build.refuse_dtensor(name, q, k, v, w)
     K, V = q.shape[-1], v.shape[-1]
     _check_kind(name, q.dtype, K, V, chunk)
     if k.dtype != q.dtype or v.dtype != q.dtype:

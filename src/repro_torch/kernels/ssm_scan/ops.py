@@ -8,13 +8,20 @@ implementation:
     chunks in place of ``lax.scan``; the default for CPU tensors.  The name
     follows the JAX package's portable impl;
   * ``naive``       — the per-token recurrence oracle (tests).
+
+DTensors (a sharded model's operands) go through ``gla_scan_sharded``
+whatever the implementation: the same dispatch on each rank's local
+shards under ``local_map``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed.sharding import kernel_placements
 from repro_torch.kernels.ssm_scan.kernel import gla_scan_cuda
 from repro_torch.kernels.ssm_scan.ref import CLAMP, GUARD, gla_scan_ref
 
@@ -77,6 +84,8 @@ def gla_scan_xla(q, k, v, w, chunk: int = 128, init_state=None):
 
 
 def gla_scan(q, k, v, w, chunk: int = 128, impl: str | None = None):
+    if isinstance(q, DTensor):
+        return gla_scan_sharded(q, k, v, w, chunk=chunk, impl=impl)
     if impl is None:
         impl = "cuda" if q.is_cuda else "xla_chunked"
     if impl == "cuda":
@@ -86,3 +95,20 @@ def gla_scan(q, k, v, w, chunk: int = 128, impl: str | None = None):
     if impl == "naive":
         return gla_scan_ref(q, k, v, w)
     raise ValueError(f"unknown impl {impl}")
+
+
+def gla_scan_sharded(q, k, v, w, chunk: int = 128, impl: str | None = None):
+    """``gla_scan`` on DTensors: each rank scans its local shards
+    (``local_map``), batch over the mesh's data-parallel axes and heads
+    over ``model``, the sequence whole (the recurrence needs all of it).
+    Returns (o, final state) as DTensors with those placements."""
+    mesh = q.device_mesh
+    B, H = q.shape[:2]
+    pl = kernel_placements(mesh, B, H, 1)
+    q, k, v, w = (t.redistribute(mesh, pl) for t in (q, k, v, w))
+
+    def local(q, k, v, w):
+        return gla_scan(q, k, v, w, chunk=chunk, impl=impl)
+
+    return local_map(local, out_placements=(pl, pl), in_placements=(pl,) * 4,
+                     device_mesh=mesh)(q, k, v, w)

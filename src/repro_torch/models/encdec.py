@@ -45,6 +45,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (constrain_batch, constrain_logits,
+                                              like, on_mesh_of, split_heads)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 
@@ -122,6 +124,7 @@ def encode(params, cfg: ModelConfig, frames, remat: bool = True):
     acfg = _self_cfg(cfg, False)
 
     def body(x, blk):
+        x = constrain_batch(x)
         a, _ = L.attention_fwd(blk["attn"], _ln(blk, "norm1", x), acfg, pos)
         x = x + a
         return x + L.mlp_fwd(blk["mlp"], _ln(blk, "norm2", x), cfg.mlp)
@@ -137,8 +140,8 @@ def _cross_kv(blk, cfg: ModelConfig, enc_states):
     """Cross-attention K/V of one layer from the encoder states."""
     B, S, _ = enc_states.shape
     KV, hd = cfg.num_kv_heads, cfg.hd
-    k = (enc_states @ blk["cross_attn"]["wk"]).reshape(B, S, KV, hd)
-    v = (enc_states @ blk["cross_attn"]["wv"]).reshape(B, S, KV, hd)
+    k = split_heads(enc_states @ blk["cross_attn"]["wk"], B, S, KV, hd)
+    v = split_heads(enc_states @ blk["cross_attn"]["wv"], B, S, KV, hd)
     return k, v
 
 
@@ -148,7 +151,7 @@ def _cross_attend(blk, cfg: ModelConfig, x, ck, cv):
     cache is."""
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.hd
-    q = (x @ blk["cross_attn"]["wq"]).reshape(B, S, H, hd)
+    q = split_heads(x @ blk["cross_attn"]["wq"], B, S, H, hd)
     o = flash_attention(q, ck, cv, causal=False, q_offset=0)
     return o.reshape(B, S, H * hd) @ blk["cross_attn"]["wo"]
 
@@ -175,6 +178,7 @@ def dec_forward(params, cfg: ModelConfig, tokens, enc_states,
     x = L.embed_fwd(params["embedding"], tokens)
 
     def body(x, blk):
+        x = constrain_batch(x)
         ck, cv = _cross_kv(blk, cfg, enc_states)
         return _dec_block(blk, cfg, x, pos, ck, cv)[0]
 
@@ -182,7 +186,8 @@ def dec_forward(params, cfg: ModelConfig, tokens, enc_states,
         body = L.maybe_remat(body, cfg.remat)
     for blk in L.layer_views(params["decoder"], cfg.decoder_layers):
         x = body(x, blk)
-    return _final(params, x)
+    x = constrain_batch(L.rms_norm(x, params["final_norm"]))
+    return constrain_logits(L.unembed_fwd(params["embedding"], x))
 
 
 def encdec_forward(params, cfg: ModelConfig, tokens, frames,
@@ -216,16 +221,16 @@ def encdec_prefill(params, cfg: ModelConfig, tokens, frames,
     cache_len = cache_len or S
     pos = _positions(B, S, tokens.device)
     x = L.embed_fwd(params["embedding"], tokens)
-    cache = encdec_init_cache(cfg, B, cache_len, enc.shape[1], dtype=x.dtype,
-                              device=x.device)
+    cache = on_mesh_of(encdec_init_cache(cfg, B, cache_len, enc.shape[1],
+                                         dtype=x.dtype, device=x.device), x)
     for i, blk in enumerate(L.layer_views(params["decoder"],
                                           cfg.decoder_layers)):
         ck, cv = _cross_kv(blk, cfg, enc)
         x, (k, v) = _dec_block(blk, cfg, x, pos, ck, cv)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
-        cache["cross_k"][i] = ck
-        cache["cross_v"][i] = cv
+        cache["k"][i, :, :S] = like(k, cache["k"])
+        cache["v"][i, :, :S] = like(v, cache["v"])
+        cache["cross_k"][i] = like(ck, cache["cross_k"])
+        cache["cross_v"][i] = like(cv, cache["cross_v"])
     return _final(params, x[:, -1:])[:, 0], cache
 
 

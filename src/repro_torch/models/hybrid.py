@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import along, constrain_batch, constrain_logits
 from repro_torch.models import layers as L
 from repro_torch.models.ssm import CONV_K, init_mamba2, mamba2_fwd
 
@@ -113,6 +114,7 @@ def hybrid_state(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def _mamba_block(cfg, blk, x, carry, decode):
+    x = constrain_batch(x)
     out, new_carry = mamba2_fwd(blk["mamba"], L.rms_norm(x, blk["norm"]),
                                 state=cfg.ssm_state, num_heads=cfg.ssm_heads,
                                 carry=carry, decode=decode)
@@ -132,6 +134,7 @@ def _mamba_stack(cfg, blocks, n, x, conv=None, gla=None, decode=False):
 
 
 def _shared_attn_fwd(cfg, sp, x, pos):
+    x = constrain_batch(x)
     a, kv = L.attention_fwd(sp["attn"], L.rms_norm(x, sp["norm1"]),
                             _attn_cfg(cfg), pos)
     x = x + a
@@ -173,7 +176,7 @@ def hybrid_forward(params, cfg: ModelConfig, tokens, embeds=None,
     if "tail" in params:
         x, _ = _mamba_stack(cfg, params["tail"], _split_layers(cfg)[1], x)
     x = L.rms_norm(x, params["final_norm"])
-    return (L.unembed_fwd(params["embedding"], x),
+    return (constrain_logits(L.unembed_fwd(params["embedding"], x)),
             torch.zeros((), device=x.device))
 
 
@@ -191,8 +194,8 @@ def hybrid_prefill(params, cfg: ModelConfig, tokens, cache_len=None,
         pad = (0, 0, 0, 0, 0, max(cache_len - S, 0))
         convs.append(conv)
         glas.append(gla)
-        ks.append(F.pad(k, pad))
-        vs.append(F.pad(v, pad))
+        ks.append(along(lambda t: F.pad(t, pad), k, 1))
+        vs.append(along(lambda t: F.pad(t, pad), v, 1))
     state = {"groups_conv": torch.stack(convs), "groups_gla": torch.stack(glas),
              "attn_k": torch.stack(ks), "attn_v": torch.stack(vs)}
     if "tail" in params:

@@ -4,9 +4,11 @@ GQA attention (train / prefill / decode, full + sliding window), MLPs.
 Port of ``repro.models.layers``.  Parameters are plain dicts of tensors in
 the JAX layouts (weights ``(in, out)``, applied as ``x @ W``), so a JAX tree
 converted by ``repro_torch.interop`` drops in unchanged.  Each init also
-records the parallel axes tree of logical axis names, kept for the
-multi-GPU slice.  The JAX package's sharding hooks (``gather_fsdp``,
-``constrain_*``) are identities on one device and are left out.
+records the parallel axes tree of logical axis names; the sharding layer
+(``repro_torch.distributed.sharding``) maps them to mesh axes.  The
+weights go through its hooks (``gather_fsdp``, ``constrain_kv_layout``)
+at the reference's call sites; outside a sharded scope they are
+identities.
 
 Logical axis vocabulary:
   "vocab"   embedding rows
@@ -26,8 +28,12 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (constrain_kv_layout, embed_rows,
+                                              gather_fsdp, index_copy_,
+                                              merge_heads, split_heads)
 from repro_torch.kernels.flash_attention import flash_attention
 
 # ---------------------------------------------------------------------------
@@ -265,16 +271,16 @@ def init_attention(generator, cfg: AttnConfig, dtype=torch.bfloat16):
 def _qkv(params, x, cfg: AttnConfig, positions):
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    q = x @ gather_fsdp(params["wq"], tp_dim=1)
+    k = x @ gather_fsdp(params["wk"], tp_dim=1)
+    v = x @ gather_fsdp(params["wv"], tp_dim=1)
     if cfg.qkv_bias:
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    q = split_heads(q, B, S, H, hd)
+    k = split_heads(k, B, S, KV, hd)
+    v = split_heads(v, B, S, KV, hd)
     if cfg.mrope:
         pos3 = positions[..., None] if positions.dim() == 2 else positions
         if pos3.shape[-1] != 3:  # text-only stream: t=h=w=position
@@ -305,8 +311,8 @@ def attention_fwd(params, x, cfg: AttnConfig, positions=None):
     q, k, v = _qkv(params, x, cfg, positions)
     out = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window,
                           q_offset=0, block_q=cfg.block_q, block_k=cfg.block_k)
-    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
-    return out @ params["wo"], (k, v)
+    out = merge_heads(out, B, S, cfg.num_heads * cfg.head_dim)
+    return out @ gather_fsdp(params["wo"], tp_dim=0), (k, v)
 
 
 def kv_len_tensor(kv_len, device) -> torch.Tensor:
@@ -336,11 +342,11 @@ def attention_decode(params, x, cfg: AttnConfig, k_cache, v_cache,
     S_cache = k_cache.shape[1]
     kv_len = kv_len_tensor(kv_len, k_cache.device)
     slot = torch.remainder(kv_len, S_cache).long().view(1)
-    k_cache.index_copy_(1, slot, k_new.to(k_cache.dtype))
-    v_cache.index_copy_(1, slot, v_new.to(v_cache.dtype))
+    index_copy_(k_cache, 1, slot, k_new.to(k_cache.dtype))
+    index_copy_(v_cache, 1, slot, v_new.to(v_cache.dtype))
     valid = torch.clamp(kv_len + 1, max=S_cache)
     out = _decode_attend(q, k_cache, v_cache, valid, cfg)
-    out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
+    out = merge_heads(out, B, 1, cfg.num_heads * cfg.head_dim)
     return out @ params["wo"], k_cache, v_cache
 
 
@@ -353,8 +359,8 @@ def _decode_attend(q, k_cache, v_cache, valid_len, cfg: AttnConfig):
     KV = k_cache.shape[2]
     G = H // KV
     qf = q.float() * (hd ** -0.5)                         # (B,1,H,hd)
-    kf = k_cache.float()
-    vf = v_cache.float()
+    kf = constrain_kv_layout(k_cache.float())
+    vf = constrain_kv_layout(v_cache.float())
     qg = qf.reshape(B, KV, G, hd)
     s = torch.einsum("bkgd,bskd->bkgs", qg, kf)           # (B,KV,G,S)
     kpos = torch.arange(k_cache.shape[1], device=q.device)
@@ -384,17 +390,20 @@ def init_mlp(generator, d_model: int, d_ff: int, kind: str = "swiglu",
 
 def mlp_fwd(params, x, kind: str = "swiglu"):
     """GELU is the tanh form, as ``jax.nn.gelu(approximate=True)``."""
+    def w(name, tp_dim=1):
+        return gather_fsdp(params[name], tp_dim=tp_dim)
+
     if kind == "swiglu":
-        h = F.silu(x @ params["wi_gate"]) * (x @ params["wi_up"])
+        h = F.silu(x @ w("wi_gate")) * (x @ w("wi_up"))
     elif kind == "geglu":
-        h = F.gelu(x @ params["wi_gate"], approximate="tanh") * (x @ params["wi_up"])
+        h = F.gelu(x @ w("wi_gate"), approximate="tanh") * (x @ w("wi_up"))
     elif kind == "gelu":
-        h = F.gelu(x @ params["wi_up"], approximate="tanh")
+        h = F.gelu(x @ w("wi_up"), approximate="tanh")
     elif kind == "relu":
-        h = F.relu(x @ params["wi_up"])
+        h = F.relu(x @ w("wi_up"))
     else:
         raise ValueError(kind)
-    return h @ params["wo"]
+    return h @ w("wo", 0)
 
 
 # ---------------------------------------------------------------------------
@@ -412,6 +421,10 @@ def init_embedding(generator, vocab: int, d_model: int, tie: bool = False,
 
 
 def embed_fwd(params, tokens):
+    """Rows of the table; a DTensor table (a sharded model) through
+    ``sharding.embed_rows``."""
+    if isinstance(params["embed"], DTensor):
+        return embed_rows(params["embed"], tokens)
     return params["embed"][tokens]
 
 

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import replicate_dim, take_last
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import ssm_stack as SS
@@ -37,12 +38,16 @@ def cross_entropy(logits, labels):
 
     The log-sum-exp runs over the whole (padded) vocab, pad columns
     included, as in the JAX package: slicing to ``vocab_size`` first
-    changes the loss.
+    changes the loss.  Sharded logits (a DTensor) are gathered whole over
+    the vocab first (``replicate_dim``; an identity on a plain tensor):
+    the gradient of a log-sum-exp over a vocab-sharded dim, averaged over
+    a batch-sharded one, is wrong in some torch releases (2.11).  The
+    label gather is ``sharding.take_last``.
     """
-    logits = logits.float()
+    logits = replicate_dim(logits.float(), -1)
     m = logits.amax(-1, keepdim=True).detach()
     lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
-    label_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    label_logit = take_last(logits, labels.long())
     return (lse - label_logit).mean()
 
 

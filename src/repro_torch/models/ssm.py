@@ -12,9 +12,9 @@ prefill and forward, the O(1) recurrent step for decode):
 * **RWKV6**: per-key-dim data-dependent decay w_t from a low-rank MLP,
   token-shift mixing on the inputs, receptance r as q, and a gated output.
 
-Decode carries (conv tail or previous token, GLA state).  The JAX
-package's ``gather_fsdp`` calls are identities on one device and are left
-out.  q, k, v and w go to the scan as head-transposed views; the kernel
+Decode carries (conv tail or previous token, GLA state).  The projection
+weights go through ``gather_fsdp``, as in the reference (an identity
+outside a sharded scope).  q, k, v and w go to the scan as head-transposed views; the kernel
 takes their strides, and Mamba2's per-head decay with a stride-0 K axis.
 """
 
@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import gather_fsdp
 from repro_torch.kernels.ssm_scan import gla_scan
 from repro_torch.kernels.ssm_scan.ref import gla_decode_step
 from repro_torch.models.layers import ParamFactory, rms_norm
@@ -80,11 +81,11 @@ def mamba2_fwd(params, x, *, state: int, num_heads: int, chunk: int = 128,
     H = num_heads
     d_inner = params["in_xz"].shape[1] // 2
     hd = d_inner // H
-    xs, z = (x @ params["in_xz"]).split(d_inner, dim=-1)
+    xs, z = (x @ gather_fsdp(params["in_xz"], tp_dim=1)).split(d_inner, dim=-1)
     conv_tail = carry[0] if carry is not None else None
     xs, new_tail = _short_conv(xs, params["conv"], conv_tail)
     xs = F.silu(xs)
-    bmat, cmat = (x @ params["in_bc"]).split(H * state, dim=-1)  # (B,S,H*state)
+    bmat, cmat = (x @ gather_fsdp(params["in_bc"], tp_dim=1)).split(H * state, dim=-1)  # (B,S,H*state)
     dt = F.softplus((x @ params["in_dt"]).float() + params["dt_bias"])  # (B,S,H)
     A = -torch.exp(params["A_log"])                    # (H,) negative
     w = (dt * A[None, None]).float()                   # (B,S,H) log-decay <= 0
@@ -108,7 +109,7 @@ def mamba2_fwd(params, x, *, state: int, num_heads: int, chunk: int = 128,
     y = o.transpose(1, 2).reshape(B, S, d_inner)
     y = y + xs * torch.repeat_interleave(params["D"], hd)[None, None].to(xs.dtype)
     y = rms_norm(y, params["norm_w"]) * F.silu(z)
-    return y @ params["out"], (new_tail, new_state)
+    return y @ gather_fsdp(params["out"], tp_dim=0), (new_tail, new_state)
 
 
 # ---------------------------------------------------------------------------
@@ -152,10 +153,10 @@ def rwkv6_fwd(params, x, *, num_heads: int, chunk: int = 128,
     def mixed(i):
         return x + (shifted - x) * params["mix"][i][None, None]
 
-    r = mixed(0) @ params["w_r"]
-    kk = mixed(1) @ params["w_k"]
-    vv = mixed(2) @ params["w_v"]
-    g = mixed(3) @ params["w_g"]
+    r = mixed(0) @ gather_fsdp(params["w_r"], tp_dim=1)
+    kk = mixed(1) @ gather_fsdp(params["w_k"], tp_dim=1)
+    vv = mixed(2) @ gather_fsdp(params["w_v"], tp_dim=1)
+    g = mixed(3) @ gather_fsdp(params["w_g"], tp_dim=1)
     # data-dependent per-channel log decay (Finch):
     dd = torch.tanh(mixed(4) @ params["wd_a"]) @ params["wd_b"]
     w = -torch.exp(params["decay_base"] + dd.float())  # (B,S,D) < 0
@@ -175,4 +176,4 @@ def rwkv6_fwd(params, x, *, num_heads: int, chunk: int = 128,
         o, new_state = gla_scan(q, k, v, wk, chunk=chunk)
     y = o.transpose(1, 2).reshape(B, S, D)
     y = rms_norm(y, params["ln_w"]) * F.silu(g)
-    return y @ params["out"], (x[:, -1:], new_state)
+    return y @ gather_fsdp(params["out"], tp_dim=0), (x[:, -1:], new_state)

@@ -22,6 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (constrain_batch, constrain_logits,
+                                              gather_fsdp)
 from repro_torch.models import layers as L
 from repro_torch.models.ssm import init_rwkv6, rwkv6_fwd, token_shift
 
@@ -40,8 +42,9 @@ def channel_mix_fwd(params, x, prev=None):
     shifted = token_shift(x, prev)
     xk = x + (shifted - x) * params["mix"][0][None, None]
     xr = x + (shifted - x) * params["mix"][1][None, None]
-    k = torch.square(F.relu(xk @ params["wk"]))
-    out = torch.sigmoid(xr @ params["wr"]) * (k @ params["wv"])
+    k = torch.square(F.relu(xk @ gather_fsdp(params["wk"], tp_dim=1)))
+    out = (torch.sigmoid(xr @ gather_fsdp(params["wr"], tp_dim=1))
+           * (k @ gather_fsdp(params["wv"], tp_dim=0)))
     return out, x[:, -1:]
 
 
@@ -75,6 +78,7 @@ def init_rwkv_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
 
 
 def _block(cfg, blk, x, carry, decode):
+    x = constrain_batch(x)
     t_out, t_carry = rwkv6_fwd(blk["time"], L.rms_norm(x, blk["norm1"]),
                                num_heads=cfg.num_heads,
                                carry=(carry[0], carry[1]), decode=decode)
@@ -121,8 +125,8 @@ def rwkv_forward(params, cfg: ModelConfig, tokens, embeds=None,
         body = L.maybe_remat(body, cfg.remat)
     for i, blk in enumerate(L.layer_views(params["blocks"], cfg.num_layers)):
         x = body(x, blk, *(s[i] for s in state))
-    x = L.rms_norm(x, params["final_norm"])
-    return (L.unembed_fwd(params["embedding"], x),
+    x = constrain_batch(L.rms_norm(x, params["final_norm"]))
+    return (constrain_logits(L.unembed_fwd(params["embedding"], x)),
             torch.zeros((), device=x.device))
 
 

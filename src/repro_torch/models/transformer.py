@@ -43,6 +43,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (along, constrain_batch,
+                                              constrain_logits, like, on_mesh_of)
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe, moe_fwd
@@ -118,6 +120,7 @@ def _mix(params, cfg, h):
 def block_fwd(params, x, cfg: ModelConfig, positions, *,
               window=None, theta=None):
     """Full-sequence block.  Returns (x, (k, v), aux_loss)."""
+    x = constrain_batch(x)  # keep activations batch-sharded (DP/FSDP)
     acfg = _attn_cfg(cfg, window=window, theta=theta)
     a, kv = L.attention_fwd(params["attn"], _norm1(params, cfg, x), acfg,
                             positions)
@@ -214,8 +217,9 @@ def _layers(params, cfg: ModelConfig):
 
 
 def _final(params, cfg, x):
+    x = constrain_batch(x)
     x = L.rms_norm(x, params["final_norm"])
-    return L.unembed_fwd(params["embedding"], x)
+    return constrain_logits(L.unembed_fwd(params["embedding"], x))
 
 
 def _embed(params, tokens, embeds=None):
@@ -330,16 +334,18 @@ def lm_prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None,
     cache_len = cache_len or S
     x = _embed(params, tokens, embeds)
     pos = _positions(cfg, B, S, tokens.device)
-    cache = lm_init_cache(cfg, B, cache_len, dtype=x.dtype, device=x.device)
+    cache = on_mesh_of(lm_init_cache(cfg, B, cache_len, dtype=x.dtype,
+                                     device=x.device), x)
     for blk, kind, i, window, theta in _layers(params, cfg):
         x, kv, _ = block_fwd(blk, x, cfg, pos, window=window, theta=theta)
         for name, a in zip("kv", kv):
             dst = cache[f"{kind}{name}"][i]
             W = dst.shape[1]
             if window is None or S <= W:
-                dst[:, :S] = a
+                dst[:, :S] = like(a, dst)
             else:
-                dst.copy_(a[:, -W:].roll(S % W, dims=1))
+                dst.copy_(like(along(lambda t: t[:, -W:].roll(S % W, dims=1),
+                                     a, 1), dst))
     logits = _final(params, cfg, x[:, -1:])[:, 0]
     return logits, cache
 

@@ -1,7 +1,8 @@
 """Serving engine: continuous batching + DDS-backed KV-block offloading.
 
-Port of ``repro.serve.engine`` (``make_serve_fns``, the mesh-sharded entry
-points, waits for the multi-GPU slice).
+Port of ``repro.serve.engine``.  ``make_serve_fns`` builds the serve entry
+points on a ``DeviceMesh``: prefill and the decode step on DTensors placed
+by the sharding rules, run eagerly under an ``activation_sharding_scope``.
 
 ``PagedKVEngine`` is the DDS integration: KV blocks of a long context are
 pages in a store.  Hot/recent blocks live on the card (the pool that the
@@ -23,12 +24,85 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.dds_server import DDSClient, encode_batch
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import P
 from repro_torch.models.registry import ModelAPI
 from repro_torch.storage.pagestore import PageStore
 from repro_torch.tree import leaves as tree_leaves
 from repro_torch.tree import tree_clone
+
+PREFILL_2D_BYTES = 4 << 30   # 1D-TP weights above this per rank -> go 2D
+
+
+def make_serve_fns(api: ModelAPI, mesh, axes_tree, shape: ShapeConfig,
+                   pshapes=None):
+    """Returns (prefill_jit, decode_jit): each takes an example of its
+    input (a batch, a cache) and gives a callable with explicit shardings.
+
+    DECODE always uses 2D weight sharding (model TP x data FSDP), and its
+    cache is placed by ``cache_specs``.  PREFILL uses 1D TP weights unless
+    they pass ``PREFILL_2D_BYTES`` a rank, then 2D as decode.  Prefill runs
+    under the scope's "train" mode where the config pins prefill
+    activations (``pin_prefill``), else "decode", as the reference's dry
+    run scopes it.  Both calls are eager; their outputs stay DTensors
+    (decode's logits and cache placed as its inputs).  Prefill also takes
+    ``api.prefill``'s ``cache_len``, which the reference's jitted call
+    cannot.
+    """
+    if pshapes is None:
+        from repro_torch.train.loop import abstract_init
+        pshapes, _ = abstract_init(api)
+    model_size = sh.mesh_shape(mesh).get("model", 1)
+    params_1d = sum(p.numel() * 2 for p in tree_leaves(pshapes)) // max(1, model_size)
+    prefill_fsdp = params_1d > PREFILL_2D_BYTES
+    pspecs_prefill = sh.sanitize_tree(
+        sh.param_specs(axes_tree, mesh, api.cfg, fsdp=prefill_fsdp),
+        pshapes, mesh)
+    pspecs = sh.sanitize_tree(
+        sh.param_specs(axes_tree, mesh, api.cfg, fsdp=True), pshapes, mesh)
+    dp = sh.dp_axes(mesh)
+    tok_spec = P(dp if shape.global_batch >= _ndp(mesh) else None, None)
+    prefill_mode = "train" if api.cfg.pin_prefill else "decode"
+
+    def decode_jit(cache_like):
+        cspecs = sh.cache_specs(cache_like, mesh, api.cfg, shape)
+
+        def run(params, cache, kv_len, token):
+            params = sh.place(params, pspecs, mesh)
+            cache = sh.place(cache, cspecs, mesh)
+            token = sh.place(token, tok_spec, mesh)
+            with sh.activation_sharding_scope(mesh, "decode"), implicit_replication():
+                logits, cache = api.decode_step(params, cache, kv_len, token)
+            return sh.place(logits, tok_spec, mesh), sh.place(cache, cspecs, mesh)
+
+        return run
+
+    def prefill_jit(batch_like):
+        bspecs = sh.batch_specs(mesh, shape, api.cfg)
+        in_b = {k: bspecs.get(k, P(dp, None)) for k in batch_like}
+
+        def run(params, batch, cache_len=None):
+            params = sh.place(params, pspecs_prefill, mesh)
+            batch = sh.place(batch, {k: in_b[k] for k in batch}, mesh)
+            with sh.activation_sharding_scope(mesh, prefill_mode), implicit_replication():
+                return api.prefill(params, batch, cache_len)
+
+        return run
+
+    return prefill_jit, decode_jit
+
+
+def _ndp(mesh) -> int:
+    n = 1
+    sizes = sh.mesh_shape(mesh)
+    for a in sh.dp_axes(mesh):
+        n *= sizes[a]
+    return n
+
 
 # ---------------------------------------------------------------------------
 # DDS-backed paged KV offloading.

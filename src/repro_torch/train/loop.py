@@ -1,6 +1,6 @@
-"""Train step and Trainer with DDS checkpoints, on one device.
+"""Train step (single-device and sharded) and Trainer with DDS checkpoints.
 
-Port of the single-device part of ``repro.train.loop``:
+Port of ``repro.train.loop``:
 
   * gradients by ``torch.autograd.grad`` over the registry loss, with each
     layer recomputed in the backward (``remat`` in the model's forward); on
@@ -14,9 +14,11 @@ Port of the single-device part of ``repro.train.loop``:
   * optional int8 error-feedback compression of the gradients
     (``compress_pod_grads``), compressed and decompressed on one device.
 
-The step is eager: no CUDA graph is captured.  ``make_train_step``,
-``make_compressed_pod_train_fn`` and ``init_pod_compression`` of the
-reference are mesh code and belong to the multi-GPU slice.
+The step is eager: no CUDA graph is captured.  ``make_train_step`` runs
+the same out-of-place step on DTensors placed by the sharding rules over a
+``DeviceMesh`` (the reference's jit with in/out shardings).  The
+reference's ``make_compressed_pod_train_fn`` and ``init_pod_compression``
+are not ported yet.
 
 ``Trainer`` drives steps with data from the deterministic pipeline and
 checkpoints ``{params, mu, nu}`` through the DDS storage path
@@ -29,11 +31,15 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
-from repro_torch.models.registry import ModelAPI
-from repro_torch.optim import adamw_init, adamw_update, warmup_cosine
-from repro_torch.optim.compression import (compress_tree, decompress_tree,
-                                           init_compression)
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import P
+from repro_torch.models.registry import ModelAPI, build_model
+from repro_torch.optim import AdamWState, adamw_init, adamw_update, warmup_cosine
+from repro_torch.optim.compression import (CompressionState, compress_tree,
+                                           decompress_tree, init_compression)
 from repro_torch.tree import tree_map
 
 
@@ -45,9 +51,20 @@ class TrainConfig:
     weight_decay: float = 0.1
     max_grad_norm: float = 1.0
     microbatch: int = 1           # gradient-accumulation splits
+    fsdp: bool = True             # "embed" on 'data' in make_train_step
     compress_pod_grads: bool = False
     b1: float = 0.9
     b2: float = 0.95
+
+
+def abstract_init(api: ModelAPI):
+    """(parameter shapes as ``meta`` tensors, axes tree), without
+    allocating anything: the init runs on fake tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        params, axes = build_model(api.cfg, "cpu").init(torch.Generator())
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                    params), axes
 
 
 def _split_micro(batch: dict, n: int) -> dict:
@@ -136,6 +153,60 @@ def make_train_fn(api: ModelAPI, tcfg: TrainConfig,
         return new_params, new_opt, comp_state, metrics
 
     return train_step
+
+
+def make_train_step(api: ModelAPI, mesh, axes_tree, tcfg: TrainConfig,
+                    batch_spec: dict | None = None):
+    """The train step with explicit in/out shardings for ``mesh``: returns
+    ``(step_fn, jit_for)``, ``step_fn`` the out-of-place
+    ``make_train_fn`` step.
+
+    ``jit_for(batch_like)`` gives ``run(params, opt_state, comp_state,
+    batch, step)``, which places params and the AdamW moments by the
+    parameter specs (``count`` replicated), the compression residuals
+    likewise and the batch by ``batch_spec`` (default: batch dims over the
+    data-parallel axes), runs ``step_fn`` on those DTensors under an
+    ``activation_sharding_scope(mesh, "train")``, and returns params and
+    state in the same placements and the metrics replicated.  Plain
+    tensors a step makes (positions, masks, zero states) act as
+    replicated.  Inputs already placed so are not copied.
+    """
+    pspecs = sh.param_specs(axes_tree, mesh, api.cfg, fsdp=tcfg.fsdp)
+    dp = sh.dp_axes(mesh)
+    bspec = batch_spec or {"tokens": P(dp, None), "labels": P(dp, None),
+                           "frames": P(dp, None, None),
+                           "embeds": P(dp, None, None)}
+    step_fn = make_train_fn(api, tcfg)
+
+    def filter_bspec(batch_like):
+        return {k: bspec.get(k, P(dp, None)) for k in batch_like}
+
+    def place_state(params, opt_state, comp_state):
+        params = sh.place(params, pspecs, mesh)
+        opt = AdamWState(sh.place(opt_state.count, P(), mesh),
+                         sh.place(opt_state.mu, pspecs, mesh),
+                         sh.place(opt_state.nu, pspecs, mesh))
+        if comp_state is not None:
+            comp_state = CompressionState(sh.place(comp_state.error, pspecs, mesh))
+        return params, opt, comp_state
+
+    def jit_for(batch_like):
+        bspecs = filter_bspec(batch_like)
+
+        def run(params, opt_state, comp_state, batch, step):
+            params, opt_state, comp_state = place_state(params, opt_state,
+                                                        comp_state)
+            batch = sh.place(batch, {k: bspecs[k] for k in batch}, mesh)
+            with sh.activation_sharding_scope(mesh, "train"), implicit_replication():
+                out = step_fn(params, opt_state, comp_state, batch, step)
+            params, opt_state, comp_state = place_state(*out[:3])
+            metrics = {k: sh.place(v, P(), mesh) if isinstance(v, DTensor) else v
+                       for k, v in out[3].items()}
+            return params, opt_state, comp_state, metrics
+
+        return run
+
+    return step_fn, jit_for
 
 
 def init_train_state(api: ModelAPI, tcfg: TrainConfig,

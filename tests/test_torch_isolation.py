@@ -23,6 +23,10 @@ COPIED = ([f"core/{m}.py" for m in (
     "file_service", "host_lib", "traffic", "offload", "client", "dds_server")]
     + [f"storage/{m}.py" for m in ("__init__", "blockdev", "pagestore")]
     + [f"data/{m}.py" for m in ("__init__", "pipeline")]
+    + [f"distributed/{m}.py" for m in ("__init__", "cluster", "fault_tolerance",
+                                       "resharding")]
+    + [f"apps/{m}.py" for m in ("__init__", "kv_store")]
+    + [f"core/{m}.py" for m in ("faultnet", "simulate")]
     + sorted(f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob("*.py")))
 
 

@@ -1,0 +1,117 @@
+"""The port's sharded train step and serve functions across gloo ranks on
+the CPU, held to its unsharded results.
+
+Two spawned groups (``tests/_torch_sharded_cases.py``), each in a
+subprocess under a time limit:
+
+  * a 2 x 2 ("data", "model") mesh, B 4: reduced TinyLlama with 1 K/V head
+    (it does not divide ``model``: the flash wrapper gathers K/V and each
+    rank takes its q heads' K/V head), with 2 (they divide), and with 6 q
+    heads over 3 K/V heads (a rank's q heads straddle groups); granite-MoE
+    (the dispatch under ``local_map``); RWKV6 (``gla_scan`` under
+    ``local_map``); TinyLlama's prefill and decode steps;
+  * a 4 x 1 mesh, B 2: the batch does not divide ``data``, so the batch
+    specs shard the sequence, which the kernels' wrappers gather whole
+    (TinyLlama's flash, RWKV6's scan), and serving keeps the batch whole.
+
+Each is held within 1e-5 of the largest |value| to the same computation
+on one process without a mesh (two train steps' losses, grad norms,
+params and AdamW moments; prefill and decode logits).  The sharded step
+must issue all-gathers and reductions (``CommDebugMode``), and a planted
+fault, every rank reading model rank 0's K/V heads, must fail the check.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import _torch_sharded_cases as cases  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+TOL = 1e-5
+GROUPS = {"2x2": (2, 2, 4), "4x1": (4, 1, 2)}
+
+
+def _run_group(tmp_path_factory, name):
+    data, model, batch = GROUPS[name]
+    out = tmp_path_factory.mktemp(f"ranks{name}") / "results.pt"
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "_torch_sharded_cases.py"),
+         str(data), str(model), str(batch), str(out)],
+        cwd=ROOT, capture_output=True, text=True, timeout=240,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+             "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return torch.load(out, weights_only=False), batch
+
+
+@pytest.fixture(scope="module")
+def group_2x2(tmp_path_factory):
+    return _run_group(tmp_path_factory, "2x2")
+
+
+@pytest.fixture(scope="module")
+def group_4x1(tmp_path_factory):
+    return _run_group(tmp_path_factory, "4x1")
+
+
+def _err(a, b) -> float:
+    """Largest |a - b| over a list of arrays, over the largest |b|."""
+    a, b = list(np.atleast_1d(a)) if np.isscalar(a) else a, b
+    a = [np.asarray(x, np.float64) for x in (a if isinstance(a, list) else [a])]
+    b = [np.asarray(x, np.float64) for x in (b if isinstance(b, list) else [b])]
+    assert [x.shape for x in a] == [x.shape for x in b]
+    big = max(float(np.abs(x).max()) for x in b)
+    return max(float(np.abs(x - y).max()) for x, y in zip(a, b)) / max(big, 1e-30)
+
+
+def _train_errs(got, want) -> dict:
+    return {k: _err(got[k], want[k]) for k in ("loss", "grad_norm", "params", "mu", "nu")}
+
+
+def _case(group, name):
+    results, batch = group
+    return results[name], cases.unsharded(name, batch)
+
+
+TRAIN_2X2 = ["tinyllama_kv1", "tinyllama_kv2", "tinyllama_h6_kv3", "granite", "rwkv6"]
+
+
+@pytest.mark.parametrize("name", TRAIN_2X2)
+def test_train_step_on_2x2_equals_unsharded(group_2x2, name):
+    got, want = _case(group_2x2, name)
+    errs = _train_errs(got["train"], want["train"])
+    assert max(errs.values()) <= TOL, errs
+
+
+@pytest.mark.parametrize("name", ["tinyllama_sp", "rwkv6_sp"])
+def test_train_step_with_sequence_sharded_batch_equals_unsharded(group_4x1, name):
+    got, want = _case(group_4x1, name)
+    errs = _train_errs(got["train"], want["train"])
+    assert max(errs.values()) <= TOL, errs
+
+
+@pytest.mark.parametrize("group,name", [("2x2", "tinyllama_kv1"), ("4x1", "tinyllama_sp")])
+def test_serve_fns_equal_unsharded(group_2x2, group_4x1, group, name):
+    got, want = _case(group_2x2 if group == "2x2" else group_4x1, name)
+    assert _err(got["serve"]["prefill"], want["serve"]["prefill"]) <= TOL
+    for g, w in zip(got["serve"]["decode"], want["serve"]["decode"]):
+        assert _err(g, w) <= TOL
+
+
+def test_sharded_step_gathers_and_reduces(group_2x2):
+    comms = group_2x2[0]["tinyllama_kv1"]["comms"]
+    gathers = sum(v for k, v in comms.items() if "all_gather" in k)
+    reductions = sum(v for k, v in comms.items() if "reduce" in k)
+    assert gathers > 0 and reductions > 0, comms
+
+
+def test_planted_kv_head_fault_fails_the_check(group_2x2):
+    got, want = _case(group_2x2, "tinyllama_h6_kv3")
+    assert max(_train_errs(got["train"], want["train"]).values()) <= TOL
+    assert max(_train_errs(got["fault"], want["train"]).values()) > 100 * TOL
