@@ -163,7 +163,23 @@ Phases, each of which exits non-zero on failure:
      moments and batches (loss, grad norm and params held to a limit,
      bit-equal expected; 44 forward and 22 backward flash launches a step
      on wgmma; peak memory within the card), and one profiled sharded
-     step: wall, device busy and idle share beside phase 14's step.
+     step: wall, device busy and idle share beside phase 14's step; (a)
+     make_serve_fns' decode step captured in a DecodeGraph on DTensors
+     placed by its in_specs, 8 replayed steps whose logits equal the eager
+     sharded steps' bit for bit, ms a step beside the eager sharded step
+     and phase 4's captured step, one profiled replay; (b)
+     make_compressed_pod_train_fn on a (pod 1, data 1, model 1) mesh, 3
+     steps against 3 of the single-device make_train_fn(
+     compress_pod_grads=True) from the same params, moments and residuals
+     (loss, grad norm, params and residuals held to a limit, bit-equal
+     expected; 44 forward and 22 backward flash launches a step on wgmma;
+     peak memory within the card);
+ 18. the dry run (python -m repro_torch.launch.dryrun, a fake process group
+     of the 16 x 16 mesh's 256 ranks, fake tensors) of TinyLlama x
+     train_4k and x decode_32k with 2 layers, each in a subprocess under a
+     time limit: every record status ok; per-rank argument and temp bytes
+     beside HBM_PER_GPU, collectives by kind and the dominant roofline term
+     (analysis, not speed).
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
 """
@@ -360,6 +376,11 @@ SHARDED = dict(S=512, cache_len=1024, decode=8, train_B=8, train_S=2048, steps=3
 # loss, grad norm and params (over the largest |param|) within 1e-3.
 TOL_SHARDED_LOGITS = 0.25
 TOL_SHARDED_TRAIN = 1e-3
+# Phase 18: the dry run (repro_torch.launch.dryrun) of these cells, each in
+# a process of its own (its fake process group is that process's default
+# group) under a time limit in seconds.
+DRYRUN = dict(arch="tinyllama_1p1b", shapes=("train_4k", "decode_32k"),
+              mesh="single", layers=2, timeout=400)
 # Phase 14: TinyLlama at full width and depth, B 8 x S 2048 (its published
 # context), 40 Trainer steps with a checkpoint after 34 (6 resumed).  At
 # the reference's lr (3e-4, 2 warmup steps) 6 steps do not descend: an H100
@@ -1632,7 +1653,7 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
                               *((None,) if label.endswith("prefill") else bound))
     return {"counts": counts, "paged": paged, "tokens": tokens,
             "dense_logits": torch.stack(dense_logits),
-            "prefill_logits": prefill_lg.float()}
+            "prefill_logits": prefill_lg.float(), "dense_graph_ms": dense_g_ms}
 
 
 def moe_routing(api, params, cache0, paged0, tokens, S, steps) -> dict:
@@ -2815,7 +2836,7 @@ def sharded_path(tiny, train14, seed, flash_cuda, bwd_cuda, card) -> None:
     from repro_torch.serve.engine import make_serve_fns
     from repro_torch.train.loop import (TrainConfig, abstract_init, make_train_fn,
                                         make_train_step)
-    from repro_torch.tree import leaves
+    from repro_torch.tree import leaves, tree_clone
 
     mesh = make_test_mesh()
     log(f"phase 17 ({card}): {dist.get_backend()} world of {dist.get_world_size()}, "
@@ -2840,6 +2861,7 @@ def sharded_path(tiny, train14, seed, flash_cuda, bwd_cuda, card) -> None:
         prefill_ms = (time.perf_counter() - t0) * 1e3
         launched = routes_since(before)["flash_attention"]
         step = dec(cache)
+        cache0 = tree_clone(cache)
         lgs, ms = [], []
         for t in range(S, S + n):
             t0 = time.perf_counter()
@@ -2864,7 +2886,9 @@ def sharded_path(tiny, train14, seed, flash_cuda, bwd_cuda, card) -> None:
     if not (max(e_pre, e_dec) <= TOL_SHARDED_LOGITS
             and all(torch.isfinite(x).all() for x in lgs)):
         raise SystemExit("sharded serving disagrees with phase 4's logits")
-    del cache, step, logits, lgs
+    sharded_graph(step, mesh, params, cache0, tokens, S, lgs,
+                  statistics.median(ms[1:]), tiny["dense_graph_ms"], card)
+    del cache, cache0, step, logits, lgs
     torch.cuda.empty_cache()
 
     Bt, St, steps = SHARDED["train_B"], SHARDED["train_S"], SHARDED["steps"]
@@ -2919,7 +2943,168 @@ def sharded_path(tiny, train14, seed, flash_cuda, bwd_cuda, card) -> None:
         f"{peak:.3f} GiB of {total:.3f}")
     if peak > total:
         raise SystemExit("the sharded train step does not fit the card")
+    del state
+    torch.cuda.empty_cache()
+    pod_path(api, params, batches[:steps], wall, card)
     dist.destroy_process_group()
+
+
+def sharded_graph(run, mesh, params, cache0, tokens, S, eager_logits,
+                  eager_ms, graph4_ms, card) -> None:
+    """Phase 17 (a): ``DecodeGraph`` over ``make_serve_fns``' decode step
+    ``run`` on the 1 x 1 mesh, with params, cache and tokens placed once by
+    its ``in_specs``: the steps from ``S`` that gave ``eager_logits`` (the
+    eager sharded steps, from the post-prefill cache ``cache0``) replayed
+    twice, the second time timed, every logit equal to the eager one bit
+    for bit; ms a step beside the eager sharded step and phase 4's captured
+    step, and one profiled replay."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.serve.engine import DecodeGraph, tree_clone, tree_leaves
+
+    pspecs, cspecs, tok_spec = run.in_specs
+    p_d = sh.place(params, pspecs, mesh)
+    start = sh.place(cache0, cspecs, mesh)
+    static = tree_clone(start)
+    tok_d = sh.place(tokens, tok_spec, mesh)
+    dev, n = tokens.device, len(eager_logits)
+    g = DecodeGraph(run, p_d, static)
+    for rnd in range(2):
+        for dst, src in zip(tree_leaves(static), tree_leaves(start)):
+            if isinstance(dst, torch.Tensor):
+                dst.to_local().copy_(src.to_local())
+        sync(dev)
+        t0 = time.perf_counter()
+        got = [full(g(p_d, static, t, tok_d[:, t:t + 1])[0]).float()
+               for t in range(S, S + n)]
+        sync(dev)
+        if rnd == 0:
+            first_s = time.perf_counter() - t0
+        ms = (time.perf_counter() - t0) / n * 1e3
+        worst = max(max_err(a, b) for a, b in zip(got, eager_logits))
+        if not all(torch.equal(a, b) for a, b in zip(got, eager_logits)):
+            raise SystemExit(f"the captured sharded decode step differs from the "
+                             f"eager sharded one (max|err| {worst:.3e})")
+    log(f"captured sharded decode ({card}): {n} steps replayed from a CUDA graph "
+        f"of make_serve_fns' step on DTensors, logits bit-equal to the eager "
+        f"sharded steps; {ms:.3f} ms/step (first round {first_s * 1e3:.1f} ms: "
+        f"{DecodeGraph.WARMUP} warm-up steps, the capture and {n} replays), eager "
+        f"sharded {eager_ms:.3f} ms/step, phase 4's captured step {graph4_ms:.3f} "
+        "ms/step")
+    profile_steps(f"captured sharded decode ({card})",
+                  lambda t: g(p_d, static, t, tok_d[:, t:t + 1]), S + n - 1, 1,
+                  weights_ms(params))
+
+
+def pod_path(api, params, batches, sharded_wall, card) -> None:
+    """Phase 17 (b): ``make_compressed_pod_train_fn`` on a (pod 1, data 1,
+    model 1) mesh over the phase's NCCL world against the single-device
+    ``make_train_fn(compress_pod_grads=True)`` from the same params, fresh
+    moments and zero residuals, ``len(batches)`` steps each: losses, grad
+    norms, params and residuals held to ``TOL_SHARDED_TRAIN`` (bit-equal
+    expected), flash launches by route a step held to phase 14's want, peak
+    memory within the card; wall beside phase 17's sharded step."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.loop import (TrainConfig, init_pod_compression,
+                                        init_train_state,
+                                        make_compressed_pod_train_fn, make_train_fn)
+    from repro_torch.tree import leaves
+
+    cfg, dev, steps = api.cfg, api.device, len(batches)
+    mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+    tcfg = TrainConfig(warmup_steps=2, compress_pod_grads=True)
+    plain = make_train_fn(api, tcfg)
+    p, o, c, _ = init_train_state(api, tcfg, params=params)
+    ref = []
+    for i in range(steps):
+        p, o, c, m = plain(p, o, c, batches[i], i)
+        ref.append((float(m["loss"]), float(m["grad_norm"])))
+    ref_params, ref_err = p, c.error
+    del o, c
+    torch.cuda.empty_cache()
+    run = make_compressed_pod_train_fn(api, tcfg, mesh)
+    state = {"p": params, "o": adamw_init(params), "c": init_pod_compression(params, 1),
+             "i": 0}
+
+    def one():
+        i = state["i"]
+        state["p"], state["o"], state["c"], m = run(state["p"], state["o"], state["c"],
+                                                    batches[i], i)
+        state["i"] += 1
+        return {"step": i, **{k: float(full(v)) for k, v in m.items()}}
+
+    recs = counted_steps(one, steps, dev, flash_train_want(cfg, "wgmma"),
+                         "compressed pod (1 x 1 x 1 mesh)")
+    got = [(r["loss"], r["grad_norm"]) for r in recs]
+    d_loss = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got, ref))
+    d_norm = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(got, ref))
+    big = max(t.float().abs().max().item() for t in leaves(ref_params))
+    d_par = max(max_err(full(a), b) for a, b in zip(leaves(state["p"]),
+                                                      leaves(ref_params))) / big
+    big_e = max(t.abs().max().item() for t in leaves(ref_err))
+    d_err = max(max_err(full(a)[0], b) for a, b in zip(leaves(state["c"].error),
+                                                         leaves(ref_err))) / big_e
+    equal = d_loss == d_norm == d_par == d_err == 0.0
+    peak = max(r["peak_gib"] for r in recs)
+    total = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    wall = statistics.median(r["ms"] for r in recs[1:])
+    log(f"compressed pod vs single-device compressed train steps ({card}), {steps} "
+        f"steps of {tuple(batches[0]['tokens'].shape)}: losses {got} vs {ref}; "
+        f"largest relative difference of loss {d_loss:.3g}, grad norm {d_norm:.3g}, "
+        f"params {d_par:.3g} of the largest |param|, residuals {d_err:.3g} of the "
+        f"largest |residual| (limits {TOL_SHARDED_TRAIN}): "
+        f"{'bit-equal' if equal else 'NOT bit-equal'}; wall {wall:.1f} ms (median of "
+        f"steps 2-{steps}; the sharded step {sharded_wall:.1f} ms), first step "
+        f"{recs[0]['ms']:.1f} ms; peak {peak:.3f} GiB of {total:.3f}")
+    if max(d_loss, d_norm, d_par, d_err) > TOL_SHARDED_TRAIN:
+        raise SystemExit("the compressed pod train step disagrees with the "
+                         "single-device compressed step")
+    if peak > total:
+        raise SystemExit("the compressed pod train step does not fit the card")
+
+
+def dryrun_path(card) -> None:
+    """Phase 18: ``python -m repro_torch.launch.dryrun`` of each of
+    ``DRYRUN``'s cells in a subprocess under a time limit (a fake process
+    group of the production mesh's 256 ranks, fake tensors: analysis, not
+    speed); each record must read ``status: ok``.  Prints per-rank argument
+    and temp bytes beside ``HBM_PER_GPU``, the collectives by kind and the
+    roofline terms."""
+    from repro_torch.launch.mesh import HBM_PER_GPU
+
+    out = ROOT / "results" / "dryrun_torch"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for shape in DRYRUN["shapes"]:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN["arch"],
+             "--shape", shape, "--mesh", DRYRUN["mesh"], "--layers",
+             str(DRYRUN["layers"]), "--out", str(out)],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=DRYRUN["timeout"])
+        path = out / (f"{DRYRUN['arch']}__{shape}__{DRYRUN['mesh']}__"
+                      f"L{DRYRUN['layers']}.json")
+        rec = json.loads(path.read_text()) if path.exists() else {"status": "missing"}
+        if proc.returncode or rec["status"] != "ok":
+            raise SystemExit(f"dry run of {DRYRUN['arch']} x {shape}: exit "
+                             f"{proc.returncode}, status {rec['status']}: "
+                             f"{rec.get('traceback', proc.stderr[-3000:])}")
+        mem, coll = rec["memory_analysis"], rec["collectives"]
+        log(f"dry run ({card}; torch {torch.__version__}; fake group, no device "
+            f"work) {DRYRUN['arch']} x {shape} x {DRYRUN['mesh']} ({rec['nchips']} "
+            f"ranks) with {DRYRUN['layers']} layers, {time.perf_counter() - t0:.1f} s: "
+            f"per rank arguments {mem['argument_size_bytes']} B, temp "
+            f"{mem['temp_size_bytes']} B, output {mem['output_size_bytes']} B "
+            f"(HBM_PER_GPU {HBM_PER_GPU} B); FLOPs {rec['hlo_flops_per_chip']:.4g}, "
+            f"bytes {rec['hlo_bytes_per_chip']:.4g}; collectives "
+            + ", ".join(f"{k} {coll[k]:.4g} B in {coll['n_' + k]}"
+                        for k in coll if not k.startswith("n_") and coll[k])
+            + f"; links {{{', '.join(f'{a}: {v['link']}' for a, v in rec['collective_links'].items())}}}"
+            f"; compute {rec['compute_s']:.4g} s, memory {rec['memory_s']:.4g} s, "
+            f"collective {rec['collective_s']:.4g} s: {rec['dominant']}; "
+            f"model FLOPs {rec['model_flops_global']:.4g}, useful ratio "
+            f"{rec['useful_flops_ratio']:.4g}")
 
 
 # ---------------------------------------------------------------------------
@@ -3049,7 +3234,8 @@ def main() -> int:
     log(card)
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} CUDA {torch.version.cuda} on {name} "
-        f"x{torch.cuda.device_count()}")
+        f"x{torch.cuda.device_count()}, total_memory "
+        f"{torch.cuda.get_device_properties(0).total_memory} bytes")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
@@ -3130,7 +3316,8 @@ def main() -> int:
     # phase 17 serves these weights again, held to this phase's logits
     tiny = {"params": tree_to(params, "cpu"), "tokens": main["tokens"],
             "prefill_logits": main["prefill_logits"],
-            "dense_logits": main["dense_logits"]}
+            "dense_logits": main["dense_logits"],
+            "dense_graph_ms": main["dense_graph_ms"]}
     del api, params, main
     torch.cuda.empty_cache()
 
@@ -3302,6 +3489,11 @@ def main() -> int:
     sharded_path(tiny, train, args.seed, flash_attention_cuda,
                  flash_attention_bwd_cuda, card)
     log(f"sharded phase {time.perf_counter() - t_phase:.1f} s")
+
+    # 18. the dry run on a fake process group, in processes of its own
+    t_phase = time.perf_counter()
+    dryrun_path(card)
+    log(f"dry-run phase {time.perf_counter() - t_phase:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     entries = []

@@ -263,20 +263,27 @@ def replicate_dim(x, dim: int):
     return constrain(x, P(*spec))
 
 
-def split_heads(x, *shape):
-    """``x.reshape(*shape)`` for a (..., heads * hd) -> (..., heads, hd)
-    split.  A DTensor whose last dim is sharded over more ranks than
-    ``heads`` divides into (K/V heads that do not divide ``model``) is
-    first gathered whole there: DTensor cannot split such a shard."""
+def splittable(x, dim: int, outer: int):
+    """``x`` ready for a reshape that splits dim ``dim`` into (``outer``,
+    rest): a DTensor whose dim is sharded over more ranks than ``outer``
+    divides into is first gathered whole there, since DTensor cannot split
+    such a shard; anything else as it is."""
     if isinstance(x, DTensor):
         n = 1
         sizes = mesh_shape(x.device_mesh)
         for a, p in zip(axis_names(x.device_mesh), x.placements):
-            if isinstance(p, Shard) and p.dim % x.ndim == x.ndim - 1:
+            if isinstance(p, Shard) and p.dim % x.ndim == dim % x.ndim:
                 n *= sizes[a]
-        if shape[-2] % n:
-            x = replicate_dim(x, -1)
-    return x.reshape(*shape)
+        if outer % n:
+            x = replicate_dim(x, dim)
+    return x
+
+
+def split_heads(x, *shape):
+    """``x.reshape(*shape)`` for a (..., heads * hd) -> (..., heads, hd)
+    split, the last dim gathered first where ``heads`` does not divide its
+    shards (K/V heads that do not divide ``model``; ``splittable``)."""
+    return splittable(x, -1, shape[-2]).reshape(*shape)
 
 
 def merge_heads(x, *shape):
@@ -392,6 +399,19 @@ def index_copy_(dst, dim: int, index, src):
         raise NotImplementedError("index_copy_ along a sharded dim")
     dst.to_local().index_copy_(dim, index, like(src, dst).to_local())
     return dst
+
+
+def local(t):
+    """A DTensor's local shard; anything else as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def from_local_like(t: torch.Tensor, mesh, placements, like) -> DTensor:
+    """``t``, this rank's local shard, as a DTensor on ``mesh`` with
+    ``placements`` and ``like``'s global shape and stride (no check, no
+    communication)."""
+    return DTensor.from_local(t, mesh, placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
 
 
 def on_mesh_of(tree: Any, x) -> Any:

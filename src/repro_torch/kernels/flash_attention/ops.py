@@ -129,6 +129,21 @@ def kv_heads_for_rank(k, v, rank: int, local_heads: int, group: int):
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
+class _DenseGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous: ``local_map`` wraps
+    a rank's local gradient in a DTensor as it is, and DTensor's later
+    views of it read it as contiguous (the plain path's gradients of K and
+    V at Sq != Sk come back transposed)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def flash_attention_sharded(q, k, v, **kw):
     """``flash_attention`` on DTensors: each rank runs it on its local
     shards (``local_map``), batch over the mesh's data-parallel axes and q
@@ -153,6 +168,7 @@ def flash_attention_sharded(q, k, v, **kw):
     v = v.redistribute(mesh, kvpl)
 
     def local(q, k, v):
+        q, k, v = (_DenseGrad.apply(t) for t in (q, k, v))
         if split_kv:
             k, v = kv_heads_for_rank(k, v, rank, Hq // m, Hq // Hkv)
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), **kw)

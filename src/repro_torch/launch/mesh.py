@@ -13,8 +13,12 @@ Each call joins the default process group, starting one if there is none:
 from the launcher's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 ``MASTER_PORT``) when it sets ``WORLD_SIZE``, else a world of one on an
 in-process store.  The backend is NCCL on ``cuda`` and gloo on the CPU.
-The reference's hardware constants belong to its TPU and are not carried
-over.
+
+The hardware constants below are the counterparts of the reference's
+roofline denominators, for an NVIDIA H100 80GB HBM3 at its 700 W limit (the
+card whose name and power limit ``chip_smoke.py`` prints); none of the
+reference's TPU values carries over.  The dry run
+(``repro_torch.launch.dryrun``) divides by them.
 """
 
 from __future__ import annotations
@@ -26,6 +30,24 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.device import resolve_device
+
+# NVIDIA H100 80GB HBM3, 700 W (SXM5).  NVIDIA H100 Tensor Core GPU
+# datasheet: dense bf16 tensor-core rate (without sparsity).
+PEAK_FLOPS_BF16 = 989e12
+# Same datasheet: HBM3 bandwidth of the SXM5 part, bytes/s.
+HBM_BW = 3.35e12
+# The card's memory as torch.cuda.get_device_properties(0).total_memory
+# reads it on an NVIDIA H100 80GB HBM3 (chip_smoke.py phase 1 prints it).
+HBM_PER_GPU = 85_017_493_504
+# Same datasheet: NVLink 4, 900 GB/s a GPU in both directions, so 450e9
+# bytes/s each way: the rate between two GPUs of one node.
+NVLINK_BW = 450e9
+# GPUs that one NVLink domain joins: an HGX H100 8-GPU node (NVIDIA DGX H100
+# user guide).
+GPUS_PER_NODE = 8
+# Between nodes: one ConnectX-7 400 Gb/s NDR InfiniBand NIC a GPU (NVIDIA DGX
+# H100 user guide), 50e9 bytes/s each way.
+NIC_BW = 50e9
 
 
 def ensure_process_group(device: str | torch.device = "cuda") -> None:

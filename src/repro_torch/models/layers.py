@@ -33,7 +33,8 @@ from torch.distributed.tensor import DTensor
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (constrain_kv_layout, embed_rows,
                                               gather_fsdp, index_copy_,
-                                              merge_heads, split_heads)
+                                              merge_heads, split_heads,
+                                              splittable)
 from repro_torch.kernels.flash_attention import flash_attention
 
 # ---------------------------------------------------------------------------
@@ -361,7 +362,7 @@ def _decode_attend(q, k_cache, v_cache, valid_len, cfg: AttnConfig):
     qf = q.float() * (hd ** -0.5)                         # (B,1,H,hd)
     kf = constrain_kv_layout(k_cache.float())
     vf = constrain_kv_layout(v_cache.float())
-    qg = qf.reshape(B, KV, G, hd)
+    qg = splittable(qf, 2, KV).reshape(B, KV, G, hd)
     s = torch.einsum("bkgd,bskd->bkgs", qg, kf)           # (B,KV,G,S)
     kpos = torch.arange(k_cache.shape[1], device=q.device)
     mask = kpos[None, None, None, :] < valid_len

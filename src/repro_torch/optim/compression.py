@@ -5,7 +5,7 @@ is quantized to int8 with one fp32 scale per tensor (max |x| / 127, round
 half to even); the residual of each round is carried to the next, so the
 accumulated dequantized sum tracks the true one.  On one device the train
 step compresses and decompresses in place of the exchange; the wire-level
-exchange across pods is the multi-GPU step's.
+exchange across pods is ``train.loop.make_compressed_pod_train_fn``'s.
 """
 
 from __future__ import annotations
@@ -26,8 +26,12 @@ def init_compression(params: Any) -> CompressionState:
         lambda p: torch.zeros_like(p, dtype=torch.float32), params))
 
 
-def _quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.clamp(x.abs().amax(), min=1e-12) / 127.0
+def _quantize(x: torch.Tensor, amax: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(int8 payload, fp32 scale) of ``x``; ``amax`` is max |x| over the
+    whole tensor where ``x`` is one shard of it (default: ``x``'s own)."""
+    amax = x.abs().amax() if amax is None else amax
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 

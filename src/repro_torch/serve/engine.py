@@ -15,6 +15,9 @@ offloads — while writes (new KV blocks) take the host path.
 leave decode slots between steps.  On a card it replays its decode step
 from a CUDA graph (``DecodeGraph``, the port of the reference's
 ``jax.jit(api.decode_step)``); on the CPU it calls the step eagerly.
+``DecodeGraph`` also captures the sharded decode step of ``make_serve_fns``
+(the reference's jit with in/out shardings) on DTensors placed by its
+``in_specs``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ShapeConfig
@@ -51,7 +55,9 @@ def make_serve_fns(api: ModelAPI, mesh, axes_tree, shape: ShapeConfig,
     run scopes it.  Both calls are eager; their outputs stay DTensors
     (decode's logits and cache placed as its inputs).  Prefill also takes
     ``api.prefill``'s ``cache_len``, which the reference's jitted call
-    cannot.
+    cannot.  Each callable has ``in_specs``: prefill's (params, batch),
+    decode's (params, cache, token) specs; inputs placed so are used as
+    they are (``DecodeGraph`` captures decode on such inputs).
     """
     if pshapes is None:
         from repro_torch.train.loop import abstract_init
@@ -79,6 +85,7 @@ def make_serve_fns(api: ModelAPI, mesh, axes_tree, shape: ShapeConfig,
                 logits, cache = api.decode_step(params, cache, kv_len, token)
             return sh.place(logits, tok_spec, mesh), sh.place(cache, cspecs, mesh)
 
+        run.in_specs = (pspecs, cspecs, tok_spec)
         return run
 
     def prefill_jit(batch_like):
@@ -91,6 +98,7 @@ def make_serve_fns(api: ModelAPI, mesh, axes_tree, shape: ShapeConfig,
             with sh.activation_sharding_scope(mesh, prefill_mode), implicit_replication():
                 return api.prefill(params, batch, cache_len)
 
+        run.in_specs = (pspecs_prefill, {k: in_b[k] for k in batch_like})
         return run
 
     return prefill_jit, decode_jit
@@ -225,15 +233,23 @@ class PagedKVEngine:
 
 def _signature(tree) -> tuple:
     """What a graph holds fixed of a tree: each tensor's address, shape and
-    dtype, and every other leaf's value."""
-    return tuple((t.data_ptr(), tuple(t.shape), t.dtype)
-                 if isinstance(t, torch.Tensor) else t for t in tree_leaves(tree))
+    dtype (a DTensor's of its local shard, beside its placements and
+    mesh: a DTensor's own ``data_ptr`` is 0), and every other leaf's
+    value."""
+    def one(t):
+        if isinstance(t, DTensor):
+            return one(t.to_local()) + (tuple(t.placements), t.device_mesh)
+        if isinstance(t, torch.Tensor):
+            return (t.data_ptr(), tuple(t.shape), t.dtype)
+        return t
+    return tuple(one(t) for t in tree_leaves(tree))
 
 
 def _cuda_device(cache) -> torch.device:
-    """The one CUDA device that holds every tensor of ``cache``; raises
-    for any other placement."""
-    devices = {t.device for t in tree_leaves(cache) if isinstance(t, torch.Tensor)}
+    """The one CUDA device that holds every tensor of ``cache`` (a
+    DTensor's local shard); raises for any other placement."""
+    devices = {sh.local(t).device for t in tree_leaves(cache)
+               if isinstance(t, torch.Tensor)}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"DecodeGraph needs a cache on one CUDA device, "
                          f"not {sorted(map(str, devices))}")
@@ -247,12 +263,12 @@ def write_back(step, params, cache, kv_len, token):
     The dense and paged caches and the attention caches of the hybrid are
     written in place by the step; every state tensor it returns new (the
     RWKV6 tuple, the hybrid's Mamba carries) is copied into ``cache``'s.
-    Returns the logits.
+    A DTensor is written in its own placements.  Returns the logits.
     """
     logits, new = step(params, cache, kv_len, token)
     for dst, src in zip(tree_leaves(cache), tree_leaves(new), strict=True):
         if isinstance(dst, torch.Tensor) and src is not dst:
-            dst.copy_(src)
+            dst.copy_(sh.like(src, dst))
     return logits
 
 
@@ -277,6 +293,14 @@ class DecodeGraph:
     a replay reads and writes the captured addresses only.  Kernel wrappers
     count the launches of the warm-up and of the capture, never a
     replay's.  Needs a CUDA device; on the CPU call the step itself.
+
+    It also takes the sharded step, ``make_serve_fns(...)[1](cache)``, on
+    DTensors: give it params, cache and tokens already placed by that
+    step's ``in_specs``, so that placing them costs nothing inside the
+    graph.  The warm-up steps then also let DTensor plan each op (its
+    sharding propagation runs on the host and caches its plans), and a
+    DTensor leaf is held to its local shard's address, shape and dtype and
+    to its placements and mesh.
     """
 
     WARMUP = 3
@@ -287,7 +311,7 @@ class DecodeGraph:
         self._sig = (_signature(params), _signature(cache))
         self.graph = None
 
-    @torch.inference_mode()
+    @torch.no_grad()   # not inference_mode: DTensor views refuse it
     def __call__(self, params, cache, kv_len, token):
         if (_signature(params), _signature(cache)) != self._sig:
             raise ValueError("DecodeGraph called with params or a cache other "
@@ -297,7 +321,7 @@ class DecodeGraph:
         elif token.shape != self._token.shape:
             raise ValueError(f"DecodeGraph captured tokens of shape "
                              f"{tuple(self._token.shape)}, got {tuple(token.shape)}")
-        self._token.copy_(token)
+        sh.local(self._token).copy_(sh.local(token))
         if isinstance(kv_len, torch.Tensor):
             self._kv_len.copy_(kv_len)
         else:
@@ -306,7 +330,12 @@ class DecodeGraph:
         return self.logits, self.cache
 
     def _capture(self, token) -> None:
-        self._token = torch.zeros_like(token, device=self.device)
+        if isinstance(token, DTensor):
+            self._token = sh.from_local_like(torch.zeros_like(token.to_local()),
+                                             token.device_mesh, token.placements,
+                                             token)
+        else:
+            self._token = torch.zeros_like(token, device=self.device)
         self._kv_len = torch.zeros((), dtype=torch.int32, device=self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))

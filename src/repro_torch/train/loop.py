@@ -16,9 +16,10 @@ Port of ``repro.train.loop``:
 
 The step is eager: no CUDA graph is captured.  ``make_train_step`` runs
 the same out-of-place step on DTensors placed by the sharding rules over a
-``DeviceMesh`` (the reference's jit with in/out shardings).  The
-reference's ``make_compressed_pod_train_fn`` and ``init_pod_compression``
-are not ported yet.
+``DeviceMesh`` (the reference's jit with in/out shardings).
+``make_compressed_pod_train_fn`` is the multi-pod step whose cross-pod
+gradient exchange is an all-gather of int8 payloads over the ``pod`` axis,
+with per-pod error-feedback residuals from ``init_pod_compression``.
 
 ``Trainer`` drives steps with data from the deterministic pipeline and
 checkpoints ``{params, mu, nu}`` through the DDS storage path
@@ -31,14 +32,16 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
-from torch.distributed.tensor import DTensor
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import P
 from repro_torch.models.registry import ModelAPI, build_model
 from repro_torch.optim import AdamWState, adamw_init, adamw_update, warmup_cosine
-from repro_torch.optim.compression import (CompressionState, compress_tree,
+from repro_torch.optim.compression import (CompressionState, _dequantize,
+                                           _quantize, compress_tree,
                                            decompress_tree, init_compression)
 from repro_torch.tree import tree_map
 
@@ -119,6 +122,12 @@ def compute_grads(api: ModelAPI, tcfg: TrainConfig, params: Any,
     return tree_map(lambda x: x.mul_(inv), g), loss_sum * inv
 
 
+def _lr(tcfg: TrainConfig, step) -> torch.Tensor:
+    return warmup_cosine(step, peak_lr=tcfg.peak_lr,
+                         warmup_steps=tcfg.warmup_steps,
+                         total_steps=tcfg.total_steps)
+
+
 def make_train_fn(api: ModelAPI, tcfg: TrainConfig,
                   donate: bool = False) -> Callable:
     """(params, opt_state, comp_state, batch, step) -> (params, opt_state,
@@ -133,18 +142,13 @@ def make_train_fn(api: ModelAPI, tcfg: TrainConfig,
     ``CheckpointManager.save_async`` takes its host copy before it
     returns."""
 
-    def lr_fn(step):
-        return warmup_cosine(step, peak_lr=tcfg.peak_lr,
-                             warmup_steps=tcfg.warmup_steps,
-                             total_steps=tcfg.total_steps)
-
     def train_step(params, opt_state, comp_state, batch, step):
         grads, loss = compute_grads(api, tcfg, params, batch)
         if tcfg.compress_pod_grads and comp_state is not None:
             # int8 error-feedback quantization of the gradient exchange.
             q, scales, comp_state = compress_tree(grads, comp_state)
             grads = decompress_tree(q, scales)
-        lr = lr_fn(step)
+        lr = _lr(tcfg, step)
         new_params, new_opt, gnorm = adamw_update(
             grads, opt_state, params, lr,
             b1=tcfg.b1, b2=tcfg.b2, weight_decay=tcfg.weight_decay,
@@ -163,7 +167,8 @@ def make_train_step(api: ModelAPI, mesh, axes_tree, tcfg: TrainConfig,
 
     ``jit_for(batch_like)`` gives ``run(params, opt_state, comp_state,
     batch, step)``, which places params and the AdamW moments by the
-    parameter specs (``count`` replicated), the compression residuals
+    parameter specs, sanitized for their shapes as the reference's dry run
+    places them (``count`` replicated), the compression residuals
     likewise and the batch by ``batch_spec`` (default: batch dims over the
     data-parallel axes), runs ``step_fn`` on those DTensors under an
     ``activation_sharding_scope(mesh, "train")``, and returns params and
@@ -182,12 +187,13 @@ def make_train_step(api: ModelAPI, mesh, axes_tree, tcfg: TrainConfig,
         return {k: bspec.get(k, P(dp, None)) for k in batch_like}
 
     def place_state(params, opt_state, comp_state):
-        params = sh.place(params, pspecs, mesh)
+        specs = sh.sanitize_tree(pspecs, params, mesh)
+        params = sh.place(params, specs, mesh)
         opt = AdamWState(sh.place(opt_state.count, P(), mesh),
-                         sh.place(opt_state.mu, pspecs, mesh),
-                         sh.place(opt_state.nu, pspecs, mesh))
+                         sh.place(opt_state.mu, specs, mesh),
+                         sh.place(opt_state.nu, specs, mesh))
         if comp_state is not None:
-            comp_state = CompressionState(sh.place(comp_state.error, pspecs, mesh))
+            comp_state = CompressionState(sh.place(comp_state.error, specs, mesh))
         return params, opt, comp_state
 
     def jit_for(batch_like):
@@ -207,6 +213,163 @@ def make_train_step(api: ModelAPI, mesh, axes_tree, tcfg: TrainConfig,
         return run
 
     return step_fn, jit_for
+
+
+def _pod_submesh(mesh):
+    """This rank's pod: the submesh of every axis but ``pod``."""
+    return mesh[tuple(a for a in sh.axis_names(mesh) if a != "pod")]
+
+
+def _to_pod(t: DTensor, sub) -> DTensor:
+    """A DTensor on the full mesh, replicated over ``pod``, as the same
+    local shard on this rank's pod submesh (no communication)."""
+    names = sh.axis_names(t.device_mesh)
+    pl = [p for a, p in zip(names, t.placements) if a != "pod"]
+    return sh.from_local_like(t.to_local(), sub, pl, t)
+
+
+def _from_pod(t: DTensor, mesh) -> DTensor:
+    """The inverse of ``_to_pod``: ``t`` on the full mesh, replicated over
+    ``pod``."""
+    inner = iter(t.placements)
+    pl = [Replicate() if a == "pod" else next(inner) for a in sh.axis_names(mesh)]
+    return sh.from_local_like(t.to_local(), mesh, pl, t)
+
+
+def _pod_gather(t: torch.Tensor, mesh) -> torch.Tensor:
+    """(npods, *t.shape): every pod's ``t``, all-gathered over ``pod``."""
+    return DTensor.from_local(t[None], mesh["pod"], [Shard(0)],
+                              run_check=False).full_tensor()
+
+
+def pod_exchange(g: DTensor, e: DTensor, mesh) -> tuple[DTensor, DTensor]:
+    """One leaf's cross-pod exchange (the reference's ``exchange``):
+    ``x = g + e`` in fp32, one scale ``max|x| / 127`` over the whole tensor
+    of this pod (a max over its shards), the int8 payload and the scale
+    all-gathered over ``pod`` only and dequantized, and the mean over pods.
+    ``g`` and ``e`` live on this rank's pod submesh; ``g`` is first put in
+    ``e``'s placements.  Returns (the mean gradient, the new residual
+    ``x - deq(q)``), both in ``e``'s placements."""
+    sub = e.device_mesh
+    x = sh.like(g, e).to_local().float() + e.to_local()
+    amax = x.abs().amax()
+    for a, p in zip(sh.axis_names(sub), e.placements):
+        if p.is_shard():
+            amax = funcol.all_reduce(amax, "max", sub.get_group(a))
+    q, s = _quantize(x, amax)
+    new_e = x - _dequantize(q, s)
+    qg = _pod_gather(q, mesh)              # int8 on the pod links
+    sg = _pod_gather(s, mesh)
+    deq = qg.float() * sg.reshape((qg.shape[0],) + (1,) * x.ndim)
+    return (sh.from_local_like(deq.mean(0), sub, e.placements, e),
+            sh.from_local_like(new_e, sub, e.placements, e))
+
+
+def make_compressed_pod_train_fn(api: ModelAPI, tcfg: TrainConfig,
+                                 mesh) -> Callable:
+    """Train step with a wire-level int8 cross-pod gradient exchange:
+    ``(params, opt_state, comp_state, batch, step) -> (params, opt_state,
+    comp_state, metrics)`` on a mesh with a ``pod`` axis.
+
+    The reference's semantics (``shard_map`` manual over ``pod``):
+
+      * each pod computes the loss and gradients of its own rows of the
+        batch (split over ``pod``) on its (data, model) submesh, without
+        microbatching, under an ``activation_sharding_scope`` that skips
+        ``pod``; flash and ``gla_scan`` run on local shards there;
+      * per leaf, ``pod_exchange``: an int8 payload and an fp32 scale per
+        tensor all-gathered over ``pod`` and averaged, with the residual
+        kept per pod;
+      * the loss is averaged over ``pod`` and AdamW runs on the mean
+        gradient over the whole mesh.
+
+    Params and moments are placed as given: a DTensor keeps its placements
+    (replicated over ``pod``), a plain tensor is replicated over the mesh,
+    as the reference's jit places an uncommitted array.  The residuals
+    (``init_pod_compression``) carry a leading pod dim, ``Shard(0)`` on
+    ``pod`` and the parameter's placements inside.  Returns params and
+    moments replicated over ``pod``, the residuals as placed, and the
+    metrics replicated.
+    """
+    names = sh.axis_names(mesh)
+    npods = sh.mesh_shape(mesh)["pod"]
+    sub = _pod_submesh(mesh)
+    rep = [Replicate()] * mesh.ndim
+
+    def on_mesh(t):
+        if isinstance(t, DTensor):
+            pl = [Replicate() if a == "pod" else p
+                  for a, p in zip(names, t.placements)]
+            return t if list(t.placements) == pl else t.redistribute(mesh, pl)
+        return DTensor.from_local(t, mesh, rep, run_check=False)
+
+    def err_on_mesh(e, p):
+        """A residual (npods, *p.shape) placed Shard(0) on ``pod`` and by
+        ``p``'s placements inside."""
+        pod = Shard(0) if npods > 1 else Replicate()
+        pl = [pod if a == "pod" else (Shard(q.dim + 1) if q.is_shard() else q)
+              for a, q in zip(names, p.placements)]
+        if isinstance(e, DTensor):
+            return e if list(e.placements) == pl else e.redistribute(mesh, pl)
+        return distribute_tensor(e, mesh, pl)
+
+    def per_pod(params, err, batch):
+        """(mean gradient, new residual, loss) on full-mesh DTensors."""
+        p_sub = tree_map(lambda t: _to_pod(t, sub), params)
+        b_sub = {k: DTensor.from_local(v.to_local(), sub, [Replicate()] * sub.ndim,
+                                       run_check=False)
+                 for k, v in batch.items()}
+        with sh.activation_sharding_scope(sub, "train",
+                                          skip_axes=frozenset({"pod"})):
+            loss, grads = value_and_grad(api, p_sub, b_sub)
+
+        def one(g, e, p):
+            mean, new_e = pod_exchange(
+                g, sh.from_local_like(e.to_local()[0], sub, p.placements, p), mesh)
+            return (_from_pod(mean, mesh),
+                    sh.from_local_like(new_e.to_local()[None], mesh, e.placements, e))
+
+        out = tree_map(one, grads, err, p_sub)
+        mean_g, new_err = (tree_map(lambda _, o: o[i], grads, out) for i in range(2))
+        local = loss.full_tensor() if isinstance(loss, DTensor) else loss
+        loss = funcol.all_reduce(local.float(), "sum", mesh.get_group("pod")) / npods
+        return mean_g, new_err, DTensor.from_local(loss, mesh, rep, run_check=False)
+
+    def train_step(params, opt_state, comp_state, batch, step):
+        params = tree_map(on_mesh, params)
+        opt_state = AdamWState(on_mesh(opt_state.count),
+                               tree_map(on_mesh, opt_state.mu),
+                               tree_map(on_mesh, opt_state.nu))
+        err = tree_map(err_on_mesh, comp_state.error, params)
+        for k, v in batch.items():
+            if v.shape[0] % npods:
+                raise ValueError(f"batch {k} of {v.shape[0]} rows does not "
+                                 f"split over {npods} pods")
+        batch = sh.place(batch, {k: P("pod", *([None] * (v.ndim - 1)))
+                                 for k, v in batch.items()}, mesh)
+        with implicit_replication():
+            grads, new_err, loss = per_pod(params, err, batch)
+            lr = _lr(tcfg, step)
+            new_params, new_opt, gnorm = adamw_update(
+                grads, opt_state, params, lr,
+                b1=tcfg.b1, b2=tcfg.b2, weight_decay=tcfg.weight_decay,
+                max_grad_norm=tcfg.max_grad_norm)
+        metrics = {"loss": loss, "grad_norm": sh.place(gnorm, P(), mesh)
+                   if isinstance(gnorm, DTensor) else gnorm, "lr": lr}
+        return new_params, new_opt, CompressionState(new_err), metrics
+
+    return train_step
+
+
+def init_pod_compression(params: Any, npods: int) -> CompressionState:
+    """Per-pod error-feedback residuals: fp32 zeros with a leading pod dim
+    of ``npods``, as a ``CompressionState`` (the reference's single-device
+    ``init_train_state`` wraps its state in a 1-tuple; ROADMAP.md, Queue
+    3).  ``make_compressed_pod_train_fn`` places them on its mesh."""
+    def zeros(p):
+        return torch.zeros((npods,) + tuple(p.shape), dtype=torch.float32,
+                           device=sh.local(p).device)
+    return CompressionState(error=tree_map(zeros, params))
 
 
 def init_train_state(api: ModelAPI, tcfg: TrainConfig,

@@ -33,6 +33,7 @@ CASES = {
          ("train", "fault")),
         ("granite", "granite_moe_3b_a800m", {}, ("train",)),
         ("rwkv6", "rwkv6_7b", {}, ("train",)),
+        ("seamless", "seamless_m4t_medium", {}, ("train",)),
     ],
     (4, 1): [
         ("tinyllama_sp", "tinyllama_1p1b", {}, ("train", "serve")),
@@ -55,6 +56,10 @@ def setup(arch: str, changes: dict, batch: int):
     rng = np.random.default_rng(1)
     tb = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, S)).astype(np.int64))
           for k in ("tokens", "labels")}
+    if cfg.family == "encdec":   # S bf16 frames of d_model a sequence
+        tb["frames"] = torch.from_numpy(
+            rng.standard_normal((batch, S, cfg.d_model)).astype(np.float32)
+        ).to(torch.bfloat16)
     return api, params, axes, tb, {"tokens": tb["tokens"]}
 
 

@@ -207,3 +207,78 @@ def test_launch_serve_says_the_cpu_step_is_eager(capsys):
     serve.main(["--device", "cpu", "--requests", "2", "--max-new", "2",
                 "--slots", "2"])
     assert "decode step: eager (cpu)" in capsys.readouterr().out
+
+
+@pytest.fixture(scope="module")
+def sharded_decode():
+    """A gloo world of one, its 1 x 1 mesh, and reduced TinyLlama's sharded
+    decode step (``make_serve_fns``) with params, cache and tokens placed
+    by the step's ``in_specs``; torn down after the module."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serve.engine import make_serve_fns
+    from repro_torch.train.loop import abstract_init
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/store", 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_test_mesh(device=CPU)
+            cfg, _, _, tparams = _model("tinyllama_1p1b")
+            api = build_model(cfg, CPU)
+            _, axes = abstract_init(api)
+            tok = _tokens()
+            _, cache = api.prefill(tparams, {"tokens": torch.from_numpy(tok[:, :PROMPT])},
+                                   CACHE_LEN)
+            run = make_serve_fns(api, mesh, axes,
+                                 ShapeConfig("d", "decode", CACHE_LEN, 2))[1](cache)
+            pspecs, cspecs, tok_spec = run.in_specs
+            tokens = sh.place(torch.from_numpy(tok), tok_spec, mesh)
+            yield (run, sh.place(tparams, pspecs, mesh), sh.place(cache, cspecs, mesh),
+                   tokens)
+        finally:
+            dist.destroy_process_group()
+
+
+def test_signature_tells_dtensor_caches_of_equal_shapes_apart(sharded_decode):
+    """A DTensor's own ``data_ptr`` is 0, so a cache is keyed by its local
+    shards' addresses (and its placements and mesh): a clone of equal
+    shapes and placements is another cache."""
+    from torch.distributed.tensor import DTensor
+    _, params, cache, _ = sharded_decode
+    clone = engine.tree_clone(cache)
+    assert all(isinstance(t, DTensor) and t.placements == u.placements
+               for t, u in zip(_leaves(clone), _leaves(cache)))
+    assert engine._signature(clone) != engine._signature(cache)
+    assert engine._signature(cache) == engine._signature(cache)
+    assert engine._signature(engine.tree_clone(params)) != engine._signature(params)
+
+
+def test_sharded_write_back_equals_the_eager_sharded_step(sharded_decode, monkeypatch):
+    """The body a DecodeGraph captures, on the sharded step's DTensors
+    without autograd (as the capture runs it), leaves the eager sharded
+    step's state in the same buffers and returns its logits; and a
+    DecodeGraph built on that cache refuses a clone of it."""
+    from torch.distributed.tensor import DTensor
+    run, params, cache, tokens = sharded_decode
+    static, direct = engine.tree_clone(cache), engine.tree_clone(cache)
+    ptrs = [t.to_local().data_ptr() for t in _leaves(static)]
+    for t in range(PROMPT, PROMPT + N_STEPS):
+        x = tokens[:, t:t + 1]
+        with torch.no_grad():
+            logits = write_back(run, params, static, _kv(t), x)
+        want, direct = run(params, direct, _kv(t), x)
+        assert isinstance(logits, DTensor)
+        assert torch.equal(logits.full_tensor(), want.full_tensor())
+        assert all(torch.equal(u.full_tensor(), v.full_tensor())
+                   for u, v in zip(_leaves(static), _leaves(direct)))
+    assert [t.to_local().data_ptr() for t in _leaves(static)] == ptrs
+    monkeypatch.setattr(engine, "_cuda_device", lambda cache: torch.device(CPU))
+    g = DecodeGraph(run, params, static)
+    with pytest.raises(ValueError, match="other than the ones"):
+        g(params, engine.tree_clone(static), _kv(PROMPT), tokens[:, PROMPT:PROMPT + 1])

@@ -9,7 +9,9 @@ subprocess under a time limit:
     rank takes its q heads' K/V head), with 2 (they divide), and with 6 q
     heads over 3 K/V heads (a rank's q heads straddle groups); granite-MoE
     (the dispatch under ``local_map``); RWKV6 (``gla_scan`` under
-    ``local_map``); TinyLlama's prefill and decode steps;
+    ``local_map``); SeamlessM4T (flash at Sq != Sk, whose local K/V
+    gradients the plain path returns transposed); TinyLlama's prefill and
+    decode steps;
   * a 4 x 1 mesh, B 2: the batch does not divide ``data``, so the batch
     specs shard the sequence, which the kernels' wrappers gather whole
     (TinyLlama's flash, RWKV6's scan), and serving keeps the batch whole.
@@ -80,12 +82,33 @@ def _case(group, name):
 
 
 TRAIN_2X2 = ["tinyllama_kv1", "tinyllama_kv2", "tinyllama_h6_kv3", "granite", "rwkv6"]
+# SeamlessM4T's first encoder norm: its gradients sum bf16-rounded
+# cotangents (the frames and that norm's output are bf16), which the sharded
+# step sums in another order; JAX's own jit and eager differ there by
+# 1.2e-3 (tests/test_torch_encdec_train.py holds that slice to 2^-7).  The
+# 2 x 2 step read 1.5e-4 there, at most 1.2e-6 elsewhere.
+BF16_NORM = ("encoder/norm1_w", "encoder/norm1_b")
 
 
 @pytest.mark.parametrize("name", TRAIN_2X2)
 def test_train_step_on_2x2_equals_unsharded(group_2x2, name):
     got, want = _case(group_2x2, name)
     errs = _train_errs(got["train"], want["train"])
+    assert max(errs.values()) <= TOL, errs
+
+
+def test_seamless_train_step_on_2x2_equals_unsharded(group_2x2):
+    from repro_torch.tree import leaf_paths
+    got, want = _case(group_2x2, "seamless")
+    _, params, _, _, _ = cases.setup("seamless_m4t_medium", {}, group_2x2[1])
+    paths = ["/".join(map(str, p)) for p, _ in leaf_paths(params)]
+    errs = {k: _err(got["train"][k], want["train"][k]) for k in ("loss", "grad_norm")}
+    for k in ("params", "mu", "nu"):
+        big = max(float(np.abs(x).max()) for x in want["train"][k])
+        for path, a, b in zip(paths, got["train"][k], want["train"][k]):
+            err = float(np.abs(np.asarray(a, np.float64) - b).max()) / big
+            tol = 2.0 ** -7 if path in BF16_NORM else TOL
+            assert err <= tol, (k, path, err)
     assert max(errs.values()) <= TOL, errs
 
 
