@@ -17,8 +17,11 @@ Phases, each of which exits non-zero on failure:
      instances and of both gla_scan backwards' kernels (the CUDA-core one
      with its most registers and spills over all 54 instances);
   3. each kernel against its plain PyTorch version at the main paths'
-     shapes (flash and paged also at granite-MoE's, DBRX's and
-     qwen2_vl_72b's heads, the last from generators of their own):
+     shapes (flash and paged also at granite-MoE's, DBRX's,
+     qwen2_vl_72b's, qwen2p5_14b's (G 5) and starcoder2_7b's (G 9) heads,
+     the last three from generators of their own; at G 5 and G 9 paged
+     beside SDPA over the same K/V laid out dense, and each wrapper's host
+     time):
      max |err| beside the tolerance, and kernel, plain, library
      (where one call computes the same function) and bound times; flash
      and gla_scan on both routes (bf16 on the tensor cores, fp32 and the
@@ -53,7 +56,8 @@ Phases, each of which exits non-zero on failure:
      bit-equal, kernel, plain and bound times (no library time), and on the
      tensor-core rows the CUDA-core kernel's time and error beside them;
      then reduced TinyLlama, granite-MoE, DBRX, qwen2_vl_72b (with an embeds
-     prefix), RWKV6, Zamba2, SeamlessM4T and gemma3_4b (with a tail)
+     prefix), Qwen2.5-14B, StarCoder2-7B, RWKV6, Zamba2, SeamlessM4T and
+     gemma3_4b (with a tail)
      models on the card (the kernels) held against the CPU path (their
      plain versions) in fp32, for the MoE family with its load-balance loss
      (and, once, a MoE layer that drops tokens), and reduced TinyLlama's,
@@ -126,10 +130,17 @@ Phases, each of which exits non-zero on failure:
      backward launches on wgmma a step; the mean loss of the last 5 must be below
      that of the first 5), a checkpoint of {params, mu, nu} (11.0 GB)
      through the DDS server with the Trainer's save_async after step 34,
-     restored bit-exact into a fresh Trainer whose 6 resumed steps give
-     the uninterrupted run's losses bit for bit, the last one profiled
-     (device busy and idle share, largest items, the port's kernels and
-     the flash backward's share);
+     restored bit-exact into a fresh Trainer, which runs on to step 40
+     under a TrainSupervisor of 4 hosts that loses one at step 37, restores
+     the step-34 checkpoint from the DDS store and replays (one restart,
+     one host dropped; every loss, the replayed ones too, equal to the
+     uninterrupted run's bit for bit), then one step profiled (device busy
+     and idle share, largest items, the port's kernels and the flash
+     backward's share); then the remat="dots" policy (selective activation
+     checkpointing that keeps the projections' outputs): one batch's
+     gradients at "dots" against "full" from the same params, and 3
+     Trainer steps at each from the same params and batches (ms, peak
+     memory, launches; one "dots" step profiled);
  15. the gated-linear-attention family trains: zamba2_1p2b at full width
      and depth and rwkv6_7b at full width with 6 of its 32 layers, B 8 x
      2048 from the structured token stream: the first step's gradients of
@@ -173,13 +184,27 @@ Phases, each of which exits non-zero on failure:
      compress_pod_grads=True) from the same params, moments and residuals
      (loss, grad norm, params and residuals held to a limit, bit-equal
      expected; 44 forward and 22 backward flash launches a step on wgmma;
-     peak memory within the card);
+     peak memory within the card); between the two, one make_train_step
+     step at remat="dots" against the first sharded step (loss and grad
+     norm held to the same limit);
  18. the dry run (python -m repro_torch.launch.dryrun, a fake process group
      of the 16 x 16 mesh's 256 ranks, fake tensors) of TinyLlama x
      train_4k and x decode_32k with 2 layers, each in a subprocess under a
      time limit: every record status ok; per-rank argument and temp bytes
      beside HBM_PER_GPU, collectives by kind and the dominant roofline term
-     (analysis, not speed).
+     (analysis, not speed);
+ 19. qwen2p5_14b at full width and depth (48 layers, 40/8 heads of 128:
+     G 5, QKV bias; 29.5 GB of bf16 weights) through phase 4's path
+     (prefill 8 x 512 into 1024: 48 flash launches on wgmma; dense and
+     paged decode, every paged launch on the split route, eager and
+     captured; profiles beside the weights read once), then the paged
+     steps with each sequence's first page dropped (a planted fault that
+     must fail the paged-vs-dense limit), the dense steps against the last
+     logits of a prefill of the longer prompt, BatchScheduler captured and
+     eager, and the peak device memory;
+ 20. starcoder2_7b at full width and depth (32 layers, 36/4 heads of 128:
+     G 9; LayerNorm with biases, plain GELU, QKV bias; 14.8 GB) the same
+     way.
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
 """
@@ -248,8 +273,13 @@ VLM_TOL_CONT = 0.36
 # 3.0234 (dbrx, 4 layers: 8 of 256 top-4 sets) at seed 0; these allow 3.5
 # times that.  For the MoE family this limit cannot tell a wrong paged
 # kernel from a flip: TOL_PAGED_PINNED is the gate that can.
+# qwen2p5_14b (48 layers, G 5) and starcoder2_7b (32 layers, G 9) at
+# phases 19-20's draw (seed 0): an H100 measured 0.1094 and 0.0625, and
+# 2.5156 and 1.0071 with each sequence's first page dropped (the planted
+# fault of dense_path); these allow 3.5 times the first two.
 TOL_PAGED_LOGITS = {"tinyllama_1p1b": 0.25, "granite_moe_3b_a800m": 17.6,
-                    "dbrx_132b": 10.6, "qwen2_vl_72b": VLM_TOL_PAGED}
+                    "dbrx_132b": 10.6, "qwen2_vl_72b": VLM_TOL_PAGED,
+                    "qwen2p5_14b": 0.38, "starcoder2_7b": 0.22}
 # The same comparison with each layer's experts pinned to the dense path's,
 # so that no flip moves a token: the attention paths' rounding, carried
 # through layers whose MoE outputs are large.  An H100 measured 0.4570
@@ -300,9 +330,13 @@ GLA_SIMT_BEFORE_MS = 1.2745
 # measured at most 0.1270 over seeds 0-3 (scripts/gemma3_cont_gate.py;
 # mean |logit| 0.81), and at least 0.5342 with the first local ring rolled
 # one slot (the planted fault of phase 12); this allows 3.5 times the first.
+# qwen2p5_14b and starcoder2_7b (phases 19-20: 8 steps after a 512-token
+# prompt): an H100 measured 0.1094 and 0.0625 at seed 0; these allow 3.5
+# times that.
 TOL_CONT_LOGITS = {"rwkv6_7b": 0.9, "zamba2_1p2b": 0.17,
                    "seamless_m4t_medium": 0.17, "gemma3_4b": 0.44,
-                   "qwen2_vl_72b": VLM_TOL_CONT}
+                   "qwen2_vl_72b": VLM_TOL_CONT, "qwen2p5_14b": 0.38,
+                   "starcoder2_7b": 0.22}
 # gemma3_4b: the cache that prefill(S) + n decode steps leave against the
 # cache of prefill(S + n), every ring slot and global position: rounding
 # alone moves a key by a few bf16 steps, a slot that holds another position
@@ -322,6 +356,22 @@ VLM_LAYERS = 24
 # of layers stacked at the end would hold the weights twice.
 INIT_SLACK = 2 * 2**30
 VLM = dict(B=8, S=2048, cache_len=2304, steps=8, page=128)
+# Phases 19-20: the dense configurations of the JAX package that had not
+# run on the card, at full width and depth through phase 4's path
+# (main_path at its defaults: prefill 8 x 512 into 1024, page 128):
+# qwen2p5_14b (48 layers, d 5120, 40/8 heads of 128: G 5; QKV bias, vocab
+# 152064; 29.5 GB of bf16 weights) and starcoder2_7b (32 layers, d 4608,
+# 36/4 heads of 128: G 9, the split paged kernel's largest compiled G;
+# LayerNorm with biases, plain GELU, QKV bias, vocab 49152; 14.8 GB).
+DENSE_ARCHS = ("qwen2p5_14b", "starcoder2_7b")
+# B, Sq, Sk, Hq, Hkv, D, use: their flash calls (phase 3: causal, S 512);
+# label, Hq, Hkv, D: their paged calls at the decode shape (page 128, up to
+# 1024 positions).  Both draw from generators of their own, so that the
+# later cases and phases draw the same numbers as before they were added.
+FLASH_DENSE = [(8, 512, 512, 40, 8, 128, "qwen2p5_14b prefill"),
+               (8, 512, 512, 36, 4, 128, "starcoder2_7b prefill")]
+PAGED_DENSE = [("qwen2p5_14b decode", 40, 8, 128),
+               ("starcoder2_7b decode", 36, 4, 128)]
 # seamless_m4t_medium, phase 11: frames, decoder prompt and decode steps.
 SEAMLESS = dict(B=8, S_enc=512, S=64, steps=8)
 # B, Sq, Sk, Hq, Hkv, D, causal, use: the flash calls of SeamlessM4T at
@@ -387,7 +437,11 @@ DRYRUN = dict(arch="tinyllama_1p1b", shapes=("train_4k", "decode_32k"),
 # read 10.806 at step 0 and 10.978 at step 5, the early Adam steps raising
 # the random logits' spread, and batches differ by about 0.1; over 40 steps
 # the mean of the first 5 losses fell from 10.847 to 10.645 over the last 5.
-TRAIN = dict(B=8, S=2048, steps=40, ckpt_at=34, mean_of=5)
+# The resumed Trainer runs on under a TrainSupervisor of 4 hosts, which
+# loses host3 at step 37, restores the step-34 checkpoint and replays; then
+# 3 steps at each remat policy ("full", "dots") from the same params.
+TRAIN = dict(B=8, S=2048, steps=40, ckpt_at=34, mean_of=5, hosts=4,
+             crash={37: "host3"}, dots_steps=3)
 # The gradient gate (train_gate): the first step's wq/wk/wv/wo gradients of
 # every layer and the global norm through the kernels against the plain
 # attention path (fp32 inside, bf16 out; the wgmma forward rounds P to bf16
@@ -566,6 +620,7 @@ def check_flash(gen, timer, seed) -> dict:
     seamless = torch.Generator(device="cuda").manual_seed(seed)
     gemma = torch.Generator(device="cuda").manual_seed(seed)
     vlm = torch.Generator(device="cuda").manual_seed(seed)
+    dense = torch.Generator(device="cuda").manual_seed(seed)
     cases = ([c + (gen, None) for c in cases]
              + [(B, Sq, Sk, Hq, Hkv, D, causal, None, bf16, True, seamless,
                  f"SeamlessM4T {use}")
@@ -574,16 +629,18 @@ def check_flash(gen, timer, seed) -> dict:
                  gemma, f"gemma3_4b {use}")
                 for B, Sq, Sk, Hq, Hkv, D, window, dt, use in FLASH_GEMMA]
              + [(VLM["B"], VLM["S"], VLM["S"], 64, 8, 128, True, None, bf16, True,
-                 vlm, "qwen2_vl_72b prefill")])
+                 vlm, "qwen2_vl_72b prefill")]
+             + [(B, Sq, Sk, Hq, Hkv, D, True, None, bf16, True, dense, use)
+                for B, Sq, Sk, Hq, Hkv, D, use in FLASH_DENSE])
     tol = {bf16: TOL_BF16, fp32: TOL_FP32}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows, first = [], None
+    rows, calls = [], {}
     for B, Sq, Sk, Hq, Hkv, D, causal, window, dtype, time_sdpa, g, use in cases:
         q = torch.randn(B, Sq, Hq, D, generator=g, device="cuda").to(dtype)
         k = torch.randn(B, Sk, Hkv, D, generator=g, device="cuda").to(dtype)
         v = torch.randn(B, Sk, Hkv, D, generator=g, device="cuda").to(dtype)
         kw = dict(causal=causal, window=window, q_offset=0 if causal else None)
-        first = first or (q, k, v, kw)
+        calls.setdefault(use, (q, k, v, kw))
         before = dict(flash_attention_cuda.launches_by_route)
         out = flash_attention_cuda(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -627,15 +684,19 @@ def check_flash(gen, timer, seed) -> dict:
             f"{row['plain_ms']:.4f} ms library {row['library_ms']} ms bound "
             f"{bnd:.4f} ms ({by}){backend}")
         rows.append(row)
-    q, k, v, kw = first
-    log(f"flash wrapper host time "
-        f"{host_us(lambda: flash_attention_cuda(q, k, v, **kw)):.2f} us a call "
-        f"at {rows[0]['case']} (checks, route, ctypes call, tensor maps and "
-        "launch; median of 5 x 200 calls)")
+    for use in (None,) + tuple(c[-1] for c in FLASH_DENSE):
+        q, k, v, kw = calls[use]
+        case = next(r["case"] for r in rows if r["use"] == use)
+        log(f"flash wrapper host time "
+            f"{host_us(lambda: flash_attention_cuda(q, k, v, **kw)):.2f} us a call "
+            f"at {case} (checks, route, ctypes call, tensor maps and "
+            "launch; median of 5 x 200 calls)")
     if not all(r["ok"] for r in rows):
         raise SystemExit("flash_attention kernel disagrees with its plain "
                          "version or took the wrong route")
-    return {"main": rows[0], "qwen2_vl_72b": rows[-1]}
+    by_use = {r["use"]: r for r in rows}
+    return {"main": rows[0], "qwen2_vl_72b": by_use["qwen2_vl_72b prefill"],
+            **{use.split()[0]: by_use[use] for *_, use in FLASH_DENSE}}
 
 
 def sass_count(lib: Path, opcode: str, marker: str = "") -> int:
@@ -833,19 +894,29 @@ def check_paged(gen, timer, seed) -> dict:
     # is the yardstick.  qwen2_vl_72b's (G = 8, D 128) at phase 13's cache of
     # 2304 positions draws from a generator of its own, so that the later
     # cases and phases draw the same numbers as before it was added.
+    # qwen2p5_14b's (G = 5) and starcoder2_7b's (G = 9), both D 128, at
+    # phases 19-20's cache of 1024 positions, draw from another, and beside
+    # them SDPA (enable_gqa) is timed on the same K/V laid out dense, with
+    # each sequence's length as a key mask: a yardstick, since it does not
+    # page.
     B, page = 8, 128
     vlm = torch.Generator(device="cuda").manual_seed(seed)
-    rows = []
+    dense = torch.Generator(device="cuda").manual_seed(seed)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows, calls = [], {}
     for label, Hq, Hkv, D, max_len, min_len, tol, g in (
             ("decode", 32, 4, 64, 1024, 1, TOL_BF16, gen),
             ("granite-MoE decode", 24, 8, 64, 1024, 1, TOL_BF16, gen),
             ("DBRX decode", 48, 8, 128, 1024, 1, TOL_BF16, gen),
             ("qwen2_vl_72b decode", 64, 8, 128, VLM["cache_len"], 1, TOL_BF16,
              vlm),
-            ("long context", 32, 4, 64, 32768, 16384, TOL_PAGED_LONG, gen)):
+            ("long context", 32, 4, 64, 32768, 16384, TOL_PAGED_LONG, gen),
+            *((label, Hq, Hkv, D, 1024, 1, TOL_BF16, dense)
+              for label, Hq, Hkv, D in PAGED_DENSE)):
         q, kp, vp, table, seq_lens = paged_inputs(g, B, Hq, Hkv, D, page,
                                                   max_len, min_len)
         args = (q, kp, vp, table, seq_lens)
+        calls[label] = args
         before = dict(paged_attention_cuda.launches_by_route)
         out = paged_attention_cuda(*args)
         torch.cuda.synchronize()
@@ -866,6 +937,17 @@ def check_paged(gen, timer, seed) -> dict:
                        and err <= tol and simt_err <= tol
                        and routed == ["split"]))
         simt_ms = timer.ms(lambda: paged_simt(*args))
+        yardstick = ""
+        if g is dense:
+            kd, vd = (pool[table.long()].flatten(1, 2).transpose(1, 2).contiguous()
+                      for pool in (kp, vp))          # (B, Hkv, max_len, D)
+            mask = (torch.arange(max_len, device="cuda")[None]
+                    < seq_lens[:, None])[:, None, None]
+            qd = q[:, :, None]
+            row["sdpa_dense_ms"] = timer.ms(lambda: sdpa(qd, kd, vd, attn_mask=mask,
+                                                         enable_gqa=True))
+            yardstick = (f", SDPA over the same K/V laid out dense (enable_gqa, "
+                         f"a length mask; no paging) {row['sdpa_dense_ms']:.4f} ms")
         ref_abs = ref.float().abs()
         log(f"paged {label}: B {B} Hq {Hq} Hkv {Hkv} D {D} page {page} "
             f"seq_lens {seq_lens.tolist()} route {routed}: max|err| {err:.3e} "
@@ -873,15 +955,19 @@ def check_paged(gen, timer, seed) -> dict:
             f"{ref_abs.max().item():.3e}) kernel {row['ms']:.4f} ms, CUDA-core "
             f"kernel (simt route) {simt_ms:.4f} ms (max|err| {simt_err:.3e}), "
             f"plain {row['plain_ms']:.4f} ms, bound {bnd:.4f} ms ({by}, "
-            f"{nbytes / 1e6:.1f} MB); no single PyTorch call pages")
+            f"{nbytes / 1e6:.1f} MB){yardstick}; no single PyTorch call pages")
         rows.append(row)
-    log(f"paged wrapper host time {host_us(lambda: paged_attention_cuda(*args)):.2f} "
-        f"us a call (checks, route, ctypes call and launch; median of 5 x 200 "
-        f"calls)")
+    for label in ("long context",) + tuple(c[0] for c in PAGED_DENSE):
+        args = calls[label]
+        log(f"paged wrapper host time {host_us(lambda: paged_attention_cuda(*args)):.2f} "
+            f"us a call at {label} (checks, route, ctypes call and launch; median "
+            "of 5 x 200 calls)")
     if not all(r["ok"] for r in rows):
         raise SystemExit("paged_attention kernel disagrees with its plain "
                          "version or took the wrong route")
-    return {"main": rows[0], "qwen2_vl_72b": rows[3]}
+    by_label = {r["case"][0]: r for r in rows}
+    return {"main": rows[0], "qwen2_vl_72b": rows[3],
+            **{label.split()[0]: by_label[label] for label, *_ in PAGED_DENSE}}
 
 
 def gla_work(q, v, w, chunk: int) -> tuple[int, int]:
@@ -1656,6 +1742,16 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
             "prefill_logits": prefill_lg.float(), "dense_graph_ms": dense_g_ms}
 
 
+def first_page_dropped(paged_attention):
+    """The planted paged fault of phases 9-10 and 19-20: ``paged_attention``
+    called without the first page of every sequence (the pages one cluster
+    rank holds)."""
+    def faulted(q, k_pool, v_pool, table, seq_lens):
+        return paged_attention(q, k_pool, v_pool, table[:, 1:].contiguous(),
+                               seq_lens - k_pool.shape[1])
+    return faulted
+
+
 def moe_routing(api, params, cache0, paged0, tokens, S, steps) -> dict:
     """Run the dense and the paged decode steps again from the post-prefill
     caches, recording every layer's top-K experts (``moe.route``, which
@@ -1676,7 +1772,7 @@ def moe_routing(api, params, cache0, paged0, tokens, S, steps) -> dict:
     from repro_torch.serve.engine import tree_clone
 
     cfg = api.cfg
-    route, paged_attention = MOE.route, TF.paged_attention
+    route = MOE.route
 
     def run(step, state, pinned=None):
         rec, logits = [], []
@@ -1699,10 +1795,6 @@ def moe_routing(api, params, cache0, paged0, tokens, S, steps) -> dict:
     def paged_step(p_, c_, n_, t_):
         return TF.lm_decode_step_paged(p_, cfg, c_, n_, t_)
 
-    def first_page_dropped(q, k_pool, v_pool, table, seq_lens):
-        return paged_attention(q, k_pool, v_pool, table[:, 1:].contiguous(),
-                               seq_lens - k_pool.shape[1])
-
     def sets(rec):
         return torch.stack(rec).sort(dim=-1).values.view(
             steps, cfg.num_layers, -1, cfg.top_k)
@@ -1710,7 +1802,8 @@ def moe_routing(api, params, cache0, paged0, tokens, S, steps) -> dict:
     dense_rec, dense_lg = run(api.decode_step, tree_clone(cache0))
     paged_rec, _ = run(paged_step, tree_clone(paged0))
     _, pinned_lg = run(paged_step, tree_clone(paged0), pinned=dense_rec)
-    with mock.patch.object(TF, "paged_attention", first_page_dropped):
+    with mock.patch.object(TF, "paged_attention",
+                           first_page_dropped(TF.paged_attention)):
         _, fault_lg = run(paged_step, tree_clone(paged0), pinned=dense_rec)
     per_layer = (sets(dense_rec) != sets(paged_rec)).any(-1).sum(dim=(0, 2)).tolist()
     r = {"dense_logits": dense_lg, "flips": per_layer,
@@ -2154,6 +2247,59 @@ def vlm_path(api, params, gen, flash_cuda, paged_cuda, B, S, cache_len, steps,
     return r
 
 
+def dense_path(api, params, gen, flash_cuda, paged_cuda) -> dict:
+    """Phases 19-20: phase 4's path (``main_path`` at its defaults: every
+    flash launch on wgmma, every paged launch on the split route, paged
+    decode within TOL_PAGED_LOGITS of dense, eager and captured, profiles
+    beside the weights read once), then two more readings of its eager
+    steps: the paged steps again with the kernel called without each
+    sequence's first page (the planted fault of phases 9-10), which must
+    fail that limit, and the dense steps against the last logits of
+    prefill(S + n), within TOL_CONT_LOGITS.  Returns ``main_path``'s
+    result."""
+    from unittest import mock
+
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.engine import tree_clone
+
+    cfg = api.cfg
+    S, steps, cache_len = 512, 8, 1024          # main_path's defaults
+    log(f"{cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.hd} (G "
+        f"{cfg.num_heads // cfg.num_kv_heads}), weights "
+        f"{weights_ms(params) * H100_BYTES_PER_S / 1e12:.3f} GB")
+    r = main_path(api, params, gen, flash_cuda, paged_cuda)
+
+    def paged_step(p_, c_, n_, t_):
+        return TF.lm_decode_step_paged(p_, cfg, c_, n_, t_)
+
+    dense = r["dense_logits"]
+    with torch.inference_mode():
+        # each step writes its own position before reading it, so the cache
+        # the eager steps left gives the same steps again
+        with mock.patch.object(TF, "paged_attention",
+                               first_page_dropped(TF.paged_attention)):
+            fault = decode_logits(paged_step, params, tree_clone(r["paged"]),
+                                  r["tokens"], S, steps)
+        full = prefill_logits(api, params, {}, r["tokens"], S, steps, cache_len)
+    tol, tol_cont = TOL_PAGED_LOGITS[cfg.name], TOL_CONT_LOGITS[cfg.name]
+    readings = {"fault": near_tie(dense, fault), "cont": near_tie(full, dense)}
+    err, same, n_tok, gap = readings["fault"]
+    log(f"{cfg.name} paged vs dense decode, first page dropped (planted fault): "
+        f"max|err| {err:.4f} (must fail the limit {tol}; mean |logit| "
+        f"{dense.abs().mean().item():.4f}); greedy tokens equal {same}/{n_tok}")
+    err, same, n_tok, gap = readings["cont"]
+    log(f"{cfg.name} prefill({S}) + n dense decode steps vs prefill({S}+n), n = "
+        f"1..{steps}: max|err| {err:.4f} (limit {tol_cont}; mean |logit| "
+        f"{full.abs().mean().item():.4f}); greedy tokens equal {same}/{n_tok}, "
+        f"largest prefill-logit gap where they differ {gap:.4f}")
+    if not readings["fault"][0] > tol:
+        raise SystemExit(f"{cfg.name}: the planted fault passes the limit {tol}")
+    if not (err <= tol_cont and gap <= tol_cont):
+        raise SystemExit(f"{cfg.name} decode does not continue its prefill")
+    return r
+
+
 def weights_ms(params) -> float:
     """A lower bound on a decode step's time in ms: its weights read once
     over the card's memory rate (the cache it also reads is left out)."""
@@ -2507,9 +2653,12 @@ def train_path(api, params, gen, seed, flash_cuda, bwd_cuda) -> dict:
     DDS checkpoint of ``{params, mu, nu}`` at ``TRAIN["ckpt_at"]``
     (the Trainer's ``save_async``), the state there kept on the card; a
     fresh Trainer (weights from another draw) restored from the checkpoint,
-    its leaves held bit-exact, and resumed: its losses must equal the
-    uninterrupted run's bit for bit.  Returns the backward launches of the
-    uninterrupted run."""
+    its leaves held bit-exact, and resumed under a ``TrainSupervisor`` that
+    loses a host at ``TRAIN["crash"]``, restores the checkpoint again and
+    replays: every loss must equal the uninterrupted run's bit for bit;
+    then ``dots_steps``.  Returns the backward launches of the
+    uninterrupted run, the gates' readings, the step's wall and busy ms and
+    the "dots" readings."""
     from repro_torch.data.pipeline import BatchSpec, TokenPipeline
     from repro_torch.launch.train import server_for
     from repro_torch.serve.engine import tree_clone
@@ -2577,20 +2726,137 @@ def train_path(api, params, gen, seed, flash_cuda, bwd_cuda) -> dict:
     del saved
     if not exact:
         raise SystemExit("the restored train state differs from the saved one")
+    # the resumed Trainer runs on to step n under a TrainSupervisor of
+    # TRAIN["hosts"] hosts: TRAIN["crash"] loses one, and the supervisor
+    # restores the step-``at`` checkpoint from the DDS store and replays
+    sup = supervised(resumed, TRAIN["hosts"], TRAIN["crash"])
+    crash_at = next(iter(TRAIN["crash"]))
+    again = counted_steps(lambda: sup.run(resumed.step + 1)[-1], crash_at - at,
+                          dev, want, "supervised")
+    sync(dev)
+    t0 = time.perf_counter()
+    sup.run(n)
+    sync(dev)
+    rest_s = time.perf_counter() - t0
+    again += resumed.history[len(again):]
+    ev = sup.events
+    log(f"TrainSupervisor over the resumed Trainer, to step {n}: events "
+        f"{[dataclasses.astuple(e) for e in ev]}, restarts {sup.restarts}, "
+        f"surviving hosts {sup.hosts}; steps run {[r['step'] for r in again]}; "
+        f"the restart's restore {sup.restore_s:.2f} s "
+        f"({info.nbytes / sup.restore_s / 1e9:.3f} GB/s), the crash to step {n} "
+        f"{rest_s:.2f} s")
+    if (sup.restarts != 1 or len(sup.hosts) != TRAIN["hosts"] - 1
+            or [(e.step, e.kind, e.action) for e in ev] != [(crash_at, "crash", "restart_shrunk")]
+            or resumed.step != n
+            or [r["step"] for r in again] != (list(range(at, crash_at))
+                                              + list(range(at, n)))):
+        raise SystemExit("the supervisor did not restart once from the checkpoint")
+    if [r["loss"] for r in again] != [losses[r["step"]] for r in again]:
+        raise SystemExit(f"resumed and replayed losses {[r['loss'] for r in again]} "
+                         f"differ from the uninterrupted run's {losses[at:]}")
+    log(f"resumed and replayed losses equal the uninterrupted run's bit for bit: "
+        f"{[r['loss'] for r in again]}")
     resumed.ckpt = None
-    again = counted_steps(lambda: resumed.run(1)[-1], n - at - 1, dev, want, "resumed")
     busy = profile_train_step(lambda: resumed.run(1), dev)["busy"]
-    again.append(dict(resumed.history[-1]))
     wall = statistics.median(r["ms"] for r in recs[1:] if r["step"] != at - 1)
     log(f"train step: wall {wall:.1f} ms (median of the uninterrupted steps "
         f"but the first and the checkpoint's), device busy {busy:.1f} ms (idle "
         f"{100 * (1 - busy / wall):.1f}%)")
-    if [r["loss"] for r in again] != losses[at:]:
-        raise SystemExit(f"resumed losses {[r['loss'] for r in again]} differ from "
-                         f"the uninterrupted run's {losses[at:]}")
-    log(f"resumed losses equal the uninterrupted run's bit for bit: {losses[at:]}")
+    start = tree_to(resumed.params, "cpu")
+    del resumed, sup
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dots = dots_steps(api, start, pipe, tcfg, n + 1, want)
     return {"launches": launches, "gate": gate, "micro": micro, "wall": wall,
-            "busy": busy}
+            "busy": busy, "dots": dots}
+
+
+def supervised(trainer, hosts: int, crash: dict):
+    """A ``TrainSupervisor`` over ``trainer`` with ``hosts`` hosts that loses
+    ``crash[step]`` at that step, its ``restore_s`` the wall of its
+    restart's ``restore_latest``."""
+    from repro_torch.distributed.fault_tolerance import TrainSupervisor
+
+    pending = dict(crash)
+    sup = TrainSupervisor(trainer, [f"host{i}" for i in range(hosts)],
+                          inject_failure=lambda s: pending.pop(s, None))
+    restore, sup.restore_s = trainer.restore_latest, 0.0
+
+    def timed():
+        sync(trainer.api.device)
+        t0 = time.perf_counter()
+        ok = restore()
+        sync(trainer.api.device)
+        sup.restore_s += time.perf_counter() - t0
+        return ok
+
+    trainer.restore_latest = timed
+    return sup
+
+
+def dots_steps(api, start, pipe, tcfg, step0: int, want: dict) -> dict:
+    """Phase 14's ``remat="dots"`` readings from the params ``start`` (on
+    the host) and the batches from ``step0``: the gradients of one batch at
+    "dots" against "full" (each leaf's ||g - g_full|| / ||g_full||, within
+    TOL_TRAIN_GRADS), then TRAIN["dots_steps"] Trainer steps at each policy
+    from fresh moments (ms, peak memory, launches held to ``want``), their
+    losses and grad norms side by side, and one profiled "dots" step.
+    Returns each policy's median ms and peak GiB."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import Trainer, value_and_grad
+    from repro_torch.tree import leaf_paths, tree_map
+
+    dev = api.device
+    apis = {"full": api, "dots": build_model(
+        dataclasses.replace(api.cfg, remat="dots"), dev)}
+    params = tree_to(start, dev)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in pipe.batch_at(step0).items()}
+    grads = {}
+    for policy, a in apis.items():
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        grads[policy] = value_and_grad(a, params, batch)
+        log(f"remat {policy}: value_and_grad peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30 if dev.type == 'cuda' else 0:.3f} GiB")
+    (loss_f, g_full), (loss_d, g_dots) = grads["full"], grads["dots"]
+    worst, where, equal = 0.0, "", 0
+    for (path, a), (_, b) in zip(leaf_paths(g_dots), leaf_paths(g_full)):
+        rel = ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+        equal += torch.equal(a, b)
+        if rel > worst:
+            worst, where = rel, "/".join(map(str, path))
+    n_leaves = len(leaf_paths(g_full))
+    log(f"remat dots vs full, gradients of step {step0}'s batch from the same "
+        f"params: loss {float(loss_d):.6f} vs {float(loss_f):.6f}; {equal} of "
+        f"{n_leaves} leaves bit-equal; worst ||g - g_full|| / ||g_full|| "
+        f"{worst:.3g}{f' at {where}' * bool(where)} (limit {TOL_TRAIN_GRADS})")
+    del grads, g_full, g_dots, params
+    if worst > TOL_TRAIN_GRADS:
+        raise SystemExit("the dots policy's gradients disagree with full remat")
+    out, recs = {}, {}
+    for policy, a in apis.items():
+        trainer = Trainer(a, tcfg, pipe, params=tree_map(
+            lambda t: t.to(dev, copy=True), start))
+        trainer.step = step0
+        recs[policy] = counted_steps(lambda: trainer.run(1)[-1], TRAIN["dots_steps"],
+                                     dev, want, f"remat {policy}")
+        if policy == "dots":
+            profile_train_step(lambda: trainer.run(1), dev)
+        del trainer
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out[policy] = {"ms": statistics.median(r["ms"] for r in recs[policy][1:]),
+                       "peak_gib": max(r["peak_gib"] for r in recs[policy])}
+    same = [(r["loss"], r["grad_norm"]) for r in recs["dots"]] == \
+        [(r["loss"], r["grad_norm"]) for r in recs["full"]]
+    log(f"remat dots vs full, {TRAIN['dots_steps']} Trainer steps from step {step0} "
+        "(fresh moments): " + "; ".join(
+            f"{p} {o['ms']:.1f} ms a step (median of the last "
+            f"{TRAIN['dots_steps'] - 1}), peak {o['peak_gib']:.3f} GiB"
+            for p, o in out.items())
+        + f"; losses and grad norms equal bit for bit: {same}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2824,7 +3090,8 @@ def sharded_path(tiny, train14, seed, flash_cuda, bwd_cuda, card) -> None:
     moments and batches (launches by route a step held to phase 14's
     want; peak memory within the card), their losses, grad norms and
     params held to ``TOL_SHARDED_*``, then one profiled sharded step: its
-    wall and idle share beside phase 14's (``train14``)."""
+    wall and idle share beside phase 14's (``train14``); one step at
+    ``remat="dots"`` held to the first sharded step; then ``pod_path``."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -2944,6 +3211,29 @@ def sharded_path(tiny, train14, seed, flash_cuda, bwd_cuda, card) -> None:
     if peak > total:
         raise SystemExit("the sharded train step does not fit the card")
     del state
+    torch.cuda.empty_cache()
+    # make_train_step at remat="dots": selective checkpointing over
+    # DTensors (the FSDP gathers in the layer bodies recomputed, the
+    # projections kept), one step from the same params, moments and batch
+    # as the first sharded step above
+    api_dots = build_model(dataclasses.replace(cfg, remat="dots"), dev)
+    run_dots = make_train_step(api_dots, mesh, axes, tcfg)[1](batches[0])
+    dots_state = {"o": adamw_init(params)}
+
+    def one_dots():
+        _, _, _, m = run_dots(params, dots_state.pop("o"), None, batches[0], 0)
+        return {"step": 0, **{k: float(full(v)) for k, v in m.items()}}
+
+    rec = counted_steps(one_dots, 1, dev, want, "sharded (1 x 1 mesh), remat dots")[0]
+    d_dots = max(abs(rec[k] - recs[0][k]) / abs(recs[0][k]) for k in ("loss", "grad_norm"))
+    log(f"sharded train step at remat dots ({card}): loss {rec['loss']!r}, grad norm "
+        f"{rec['grad_norm']!r} against the full-remat sharded step's "
+        f"{recs[0]['loss']!r}, {recs[0]['grad_norm']!r}: largest relative difference "
+        f"{d_dots:.3g} (limit {TOL_SHARDED_TRAIN}); {rec['ms']:.1f} ms (its first "
+        f"call: sharding propagation), peak {rec['peak_gib']:.3f} GiB")
+    if d_dots > TOL_SHARDED_TRAIN:
+        raise SystemExit("the sharded dots step disagrees with the full-remat one")
+    del run_dots, dots_state
     torch.cuda.empty_cache()
     pod_path(api, params, batches[:steps], wall, card)
     dist.destroy_process_group()
@@ -3286,7 +3576,7 @@ def main() -> int:
     flash_bwd = check_flash_bwd(timer, args.seed)
     gla_bwd = check_gla_bwd(timer, args.seed)
     del timer
-    for arch in ("tinyllama_1p1b",) + MOE_ARCHS + ("qwen2_vl_72b",):
+    for arch in ("tinyllama_1p1b",) + MOE_ARCHS + ("qwen2_vl_72b",) + DENSE_ARCHS:
         check_reduced_against_cpu(arch, args.seed)
     for arch in ("tinyllama_1p1b", MOE_ARCHS[0], "rwkv6_7b", "zamba2_1p2b",
                  "gemma3_4b", "seamless_m4t_medium", "qwen2_vl_72b"):
@@ -3494,6 +3784,28 @@ def main() -> int:
     t_phase = time.perf_counter()
     dryrun_path(card)
     log(f"dry-run phase {time.perf_counter() - t_phase:.1f} s")
+
+    # 19-20. qwen2p5_14b and starcoder2_7b at full width and depth, each
+    # from a generator of its own (the limits are readings at its draw)
+    dense_counts = {}
+    for arch in DENSE_ARCHS:
+        t_phase = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        torch.cuda.reset_peak_memory_stats()
+        api = build_model(get_config(arch))
+        params, _ = api.init(gen)
+        init_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        dense_counts[arch] = dense_path(api, params, gen, flash_attention_cuda,
+                                        paged_attention_cuda)["counts"]
+        log(f"{arch}: launches {dense_counts[arch]}; peak device memory "
+            f"{init_peak:.3f} GiB during init, "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB during "
+            "prefill, decode and the readings")
+        serve_batch(api, params, f"{name} ({card})")
+        del api, params
+        torch.cuda.empty_cache()
+        log(f"{arch} phase {time.perf_counter() - t_phase:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     entries = []
@@ -3528,7 +3840,16 @@ def main() -> int:
             # 34 layers)
             ("flash_attention_bwd@gemma3_4b", flash_bwd["gemma3_4b training, local layers"],
              train16["gemma3_4b"]["launches"]["wgmma"], "flash_attention_bwd_wgmma",
-             "src/repro/kernels/flash_attention/kernel.py:96")):
+             "src/repro/kernels/flash_attention/kernel.py:96"),
+            # the forward kernels at G 5 and G 9 (D 128), with phases 19-20's
+            # launches
+            *((f"{kernel}@{arch}", row[arch], dense_counts[arch][kernel], source, line)
+              for arch in DENSE_ARCHS
+              for kernel, row, source, line in (
+                  ("flash_attention", flash, "flash_attention_wgmma",
+                   "src/repro/kernels/flash_attention/kernel.py:96"),
+                  ("paged_attention", paged_row, "paged_attention_split",
+                   "src/repro/kernels/paged_attention/kernel.py:84")))):
         entries.append({
             "name": kname, "route": "cuda", "case": str(row["case"]),
             "kernel_route": row["route"][0],

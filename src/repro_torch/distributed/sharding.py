@@ -253,6 +253,23 @@ def constrain_kv_layout(x):
     return constrain(x, P(*([P.UNCONSTRAINED] * (x.ndim - 2)), kv_ax, hd_ax))
 
 
+def reduce_model_partial(x):
+    """``x`` with a pending reduction (``Partial``) on ``model`` carried
+    out: its last dim sharded over ``model`` where it divides, else whole
+    there; anything else as it is.  What a broadcast add of a bias sharded
+    on ``model`` needs: torch 2.11's DTensor would make the bias
+    ``Partial`` instead, which it cannot redistribute."""
+    if not isinstance(x, DTensor):
+        return x
+    sizes = mesh_shape(x.device_mesh)
+    out = [(Shard(x.ndim - 1) if x.shape[-1] % sizes[a] == 0 else Replicate())
+           if a == "model" and isinstance(p, Partial) else p
+           for a, p in zip(axis_names(x.device_mesh), x.placements)]
+    if out == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, out)
+
+
 def replicate_dim(x, dim: int):
     """``x`` with dim ``dim`` whole on every rank (a plain tensor as it
     is): what an op that indexes along that dim needs."""

@@ -23,12 +23,15 @@ Logical axis vocabulary:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (constrain_kv_layout, embed_rows,
@@ -153,14 +156,35 @@ def layer_views(blocks: dict, n: int) -> list[dict]:
     return [take(blocks, i) for i in range(n)]
 
 
-def maybe_remat(fn, policy: str):
-    """Wrap a layer body in activation checkpointing per the remat policy.
+# What the "dots" policy saves: the projections ``x @ W``, which
+# ``torch.matmul`` folds into ``mm`` for a 3-D ``x`` (``addmm`` with a
+# bias).  These are JAX's dots with no batch dimensions; ``bmm`` (the MoE
+# experts, the plain attention's einsums) has batch dimensions, and
+# neither policy saves those.
+_DOTS_SAVED = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
 
-    torch has no counterpart of the "dots" policy (save matmul outputs);
-    it recomputes the whole body like "full".
-    """
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The port of ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
+    for ``create_selective_checkpoint_contexts``: keep the outputs of the
+    ops in ``_DOTS_SAVED``, recompute everything else (the flash and
+    gla_scan autograd functions among them, as JAX recomputes a Pallas
+    call)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def maybe_remat(fn, policy: str):
+    """Wrap a layer body in activation checkpointing per the remat policy:
+    "full" recomputes the whole body in the backward, "dots" recomputes it
+    but for the projections' outputs, which the forward keeps
+    (``_dots_policy``), and "none" keeps every activation."""
     if policy == "none":
         return fn
+    if policy == "dots":
+        return lambda *args: torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy))
     return lambda *args: torch.utils.checkpoint.checkpoint(
         fn, *args, use_reentrant=False)
 

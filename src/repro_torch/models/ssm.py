@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import gather_fsdp
+from repro_torch.distributed.sharding import gather_fsdp, reduce_model_partial
 from repro_torch.kernels.ssm_scan import gla_scan
 from repro_torch.kernels.ssm_scan.ref import gla_decode_step
 from repro_torch.models.layers import ParamFactory, rms_norm
@@ -86,7 +86,11 @@ def mamba2_fwd(params, x, *, state: int, num_heads: int, chunk: int = 128,
     xs, new_tail = _short_conv(xs, params["conv"], conv_tail)
     xs = F.silu(xs)
     bmat, cmat = (x @ gather_fsdp(params["in_bc"], tp_dim=1)).split(H * state, dim=-1)  # (B,S,H*state)
-    dt = F.softplus((x @ params["in_dt"]).float() + params["dt_bias"])  # (B,S,H)
+    # x is a pending sum over "model" in a sharded train step (the
+    # residual stream after a row-sharded projection), and so is x @ in_dt:
+    # reduced before the add of the "model"-sharded dt_bias
+    dt = F.softplus(reduce_model_partial(x @ params["in_dt"]).float()
+                    + params["dt_bias"])                # (B,S,H)
     A = -torch.exp(params["A_log"])                    # (H,) negative
     w = (dt * A[None, None]).float()                   # (B,S,H) log-decay <= 0
 

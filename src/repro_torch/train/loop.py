@@ -28,7 +28,7 @@ checkpoints ``{params, mu, nu}`` through the DDS storage path
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable
 
 import torch
@@ -393,15 +393,41 @@ def init_train_state(api: ModelAPI, tcfg: TrainConfig,
     return params, opt, comp, axes
 
 
+def _init_from_start(api: ModelAPI, generator: torch.Generator | None,
+                     params: Any) -> Callable:
+    """``api.init`` for a Trainer started from ``generator`` or ``params``:
+    called with no generator it gives the params the Trainer started from
+    again (a draw from ``generator`` as it stood, or a host copy of
+    ``params``), where ``api.init(None)`` draws from seed 0.  That is what
+    ``TrainSupervisor`` re-inits to when it restarts with no checkpoint
+    (``init_train_state(trainer.api, trainer.tcfg)``): the reference's
+    Trainer takes neither argument, so its re-init is its start."""
+    if params is not None:
+        kept = tree_map(lambda t: t.detach().to("cpu", copy=True), params)
+
+        def again():
+            return tree_map(lambda t: t.to(api.device, copy=True), kept), None
+    elif generator is not None:
+        state, device = generator.get_state(), generator.device
+
+        def again():
+            return api.init(torch.Generator(device=device).set_state(state))
+    else:
+        return api.init
+    return lambda generator: again() if generator is None else api.init(generator)
+
+
 class Trainer:
     """End-to-end driver: pipeline -> train step -> DDS checkpoints.  Its
     step updates ``params``, ``opt.mu`` and ``opt.nu`` in place
-    (``make_train_fn(..., donate=True)``)."""
+    (``make_train_fn(..., donate=True)``).  Its ``api.init(None)`` gives the
+    params it started from (``_init_from_start``; given ``params``, it keeps
+    a host copy of them for that)."""
 
     def __init__(self, api: ModelAPI, tcfg: TrainConfig, pipeline,
                  checkpoint_mgr=None, ckpt_every: int = 100,
                  generator: torch.Generator | None = None, params: Any = None):
-        self.api = api
+        self.api = replace(api, init=_init_from_start(api, generator, params))
         self.tcfg = tcfg
         self.pipeline = pipeline
         self.ckpt = checkpoint_mgr

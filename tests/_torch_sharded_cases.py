@@ -1,8 +1,9 @@
 """Cases of the port's sharded entry points, run on gloo ranks on the CPU.
 
-``python tests/_torch_sharded_cases.py DATA MODEL BATCH OUT`` spawns
-DATA x MODEL ranks on a ("data", "model") mesh over a file store, runs
-``CASES`` through ``make_train_step`` and ``make_serve_fns`` and writes,
+``python tests/_torch_sharded_cases.py DATA MODEL BATCH OUT [GROUP]``
+spawns DATA x MODEL ranks on a ("data", "model") mesh over a file store,
+runs ``CASES[(DATA, MODEL)]`` (or ``CASES[GROUP]``) through
+``make_train_step`` and ``make_serve_fns`` and writes,
 from rank 0, every result gathered whole to OUT (``torch.save``).
 ``unsharded`` computes the same results on one process without a mesh:
 ``tests/test_torch_sharded_ranks.py`` holds the two against each other.
@@ -34,10 +35,18 @@ CASES = {
         ("granite", "granite_moe_3b_a800m", {}, ("train",)),
         ("rwkv6", "rwkv6_7b", {}, ("train",)),
         ("seamless", "seamless_m4t_medium", {}, ("train",)),
+        ("zamba2", "zamba2_1p2b", {"num_layers": 5}, ("train",)),
     ],
     (4, 1): [
         ("tinyllama_sp", "tinyllama_1p1b", {}, ("train", "serve")),
         ("rwkv6_sp", "rwkv6_7b", {}, ("train",)),
+    ],
+    # the "dots" remat policy (tests/test_torch_remat.py), on a 2 x 2 mesh
+    "dots": [
+        ("tinyllama_dots", "tinyllama_1p1b", {"remat": "dots"}, ("train",)),
+        ("granite_dots", "granite_moe_3b_a800m", {"remat": "dots"}, ("train",)),
+        ("rwkv6_dots", "rwkv6_7b", {"remat": "dots"}, ("train",)),
+        ("zamba2_dots", "zamba2_1p2b", {"remat": "dots", "num_layers": 5}, ("train",)),
     ],
 }
 
@@ -48,8 +57,8 @@ def setup(arch: str, changes: dict, batch: int):
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models.registry import build_model
     from repro_torch.tree import tree_map
-    cfg = dataclasses.replace(reduced_config(get_config(arch)), num_layers=2,
-                              **changes)
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              **{"num_layers": 2, **changes})
     api = build_model(cfg, "cpu")
     params, axes = api.init(torch.Generator().manual_seed(0))
     params = tree_map(lambda t: t.float(), params)
@@ -151,7 +160,8 @@ def comm_counts(api, params, axes, batch, mesh) -> dict:
     return {str(k): v for k, v in comm.get_comm_counts().items()}
 
 
-def _rank(rank: int, world: int, shape: tuple, batch: int, store: str, out: str):
+def _rank(rank: int, world: int, shape: tuple, group, batch: int, store: str,
+          out: str):
     import torch.distributed as dist
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                             world_size=world, timeout=timedelta(seconds=60))
@@ -160,7 +170,7 @@ def _rank(rank: int, world: int, shape: tuple, batch: int, store: str, out: str)
         from repro_torch.kernels.flash_attention import ops as flash_ops
         mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
         results = {}
-        for name, arch, changes, what in CASES[shape]:
+        for name, arch, changes, what in CASES[group]:
             api, params, axes, tb, pb = setup(arch, changes, batch)
             res = {"train": train(api, params, axes, tb, mesh)}
             if "serve" in what:
@@ -186,8 +196,9 @@ def _rank(rank: int, world: int, shape: tuple, batch: int, store: str, out: str)
 def main(argv: list[str]) -> None:
     import torch.multiprocessing as mp
     data, model, batch, out = int(argv[0]), int(argv[1]), int(argv[2]), argv[3]
+    group = argv[4] if len(argv) > 4 else (data, model)
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_rank, args=(data * model, (data, model), batch,
+        mp.spawn(_rank, args=(data * model, (data, model), group, batch,
                               os.path.join(tmp, "store"), out),
                  nprocs=data * model)
 

@@ -25,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced_config as jax_reduced_config
@@ -225,6 +226,20 @@ def test_hooks_leave_a_dtensor_alone_outside_a_scope(mesh):
     for hook in (sh.constrain_batch, sh.constrain_logits, sh.constrain_kv_layout,
                  lambda t: sh.gather_fsdp(t, tp_dim=1)):
         assert hook(x) is x
+
+
+def test_reduce_model_partial_carries_out_the_pending_sum(mesh):
+    """What Mamba2's dt needs before its bias add (torch 2.11's DTensor
+    would make the model-sharded bias Partial, which it cannot): a Partial
+    on ``model`` becomes a shard of the last dim; anything else is left
+    alone."""
+    t = torch.randn(2, 3, 8)
+    y = sh.reduce_model_partial(DTensor.from_local(t, mesh, [Replicate(), Partial()]))
+    assert tuple(y.placements) == (Replicate(), Shard(2))
+    assert torch.equal(y.full_tensor(), t)
+    r = distribute_tensor(t, mesh, [Replicate(), Replicate()])
+    assert sh.reduce_model_partial(r) is r
+    assert sh.reduce_model_partial(t) is t
 
 
 def test_a_dtensor_at_a_kernel_launcher_raises(mesh):

@@ -10,8 +10,9 @@ subprocess under a time limit:
     heads over 3 K/V heads (a rank's q heads straddle groups); granite-MoE
     (the dispatch under ``local_map``); RWKV6 (``gla_scan`` under
     ``local_map``); SeamlessM4T (flash at Sq != Sk, whose local K/V
-    gradients the plain path returns transposed); TinyLlama's prefill and
-    decode steps;
+    gradients the plain path returns transposed); Zamba2 (5 Mamba2 layers:
+    two groups with the shared attention block, and a tail); TinyLlama's
+    prefill and decode steps;
   * a 4 x 1 mesh, B 2: the batch does not divide ``data``, so the batch
     specs shard the sequence, which the kernels' wrappers gather whole
     (TinyLlama's flash, RWKV6's scan), and serving keeps the batch whole.
@@ -81,7 +82,8 @@ def _case(group, name):
     return results[name], cases.unsharded(name, batch)
 
 
-TRAIN_2X2 = ["tinyllama_kv1", "tinyllama_kv2", "tinyllama_h6_kv3", "granite", "rwkv6"]
+TRAIN_2X2 = ["tinyllama_kv1", "tinyllama_kv2", "tinyllama_h6_kv3", "granite", "rwkv6",
+             "zamba2"]
 # SeamlessM4T's first encoder norm: its gradients sum bf16-rounded
 # cotangents (the frames and that norm's output are bf16), which the sharded
 # step sums in another order; JAX's own jit and eager differ there by
