@@ -2317,7 +2317,8 @@ def profile_steps(label: str, step, t0: int, n: int,
     beside ``bound``, a lower bound on the step's time in ms (``bound_what``
     says what it counts), where given.  Busy time sums
     the device's own events only: a CPU op's self device time repeats that
-    of the kernels it launched."""
+    of the kernels it launched, and a user annotation's device range (the
+    port's ``repro_torch.*`` spans) that of the kernels inside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2332,7 +2333,8 @@ def profile_steps(label: str, step, t0: int, n: int,
             step(t)
         torch.cuda.synchronize()
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     launches = sum(e.count for e in events  # cudaLaunchKernelExC: clusters
                    if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))) / n
@@ -2621,7 +2623,8 @@ def profile_train_step(run_step, device, share: str = "flash_bwd",
     """Device busy time (ms), the largest device items and the port's
     kernels of one train step (``run_step()``), with the time and share of
     the busy time of the port's kernels whose names start with ``share``
-    (``share_name``), from a torch.profiler trace (device events only).
+    (``share_name``), from a torch.profiler trace (device events only, not
+    the device ranges of user annotations such as the port's spans).
     Returns {"busy": ms, "share_ms": ms}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2630,7 +2633,8 @@ def profile_train_step(run_step, device, share: str = "flash_bwd",
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run_step()
         sync(device)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     ours = {name: (sum(e.self_device_time_total for e in es) / 1e3,

@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import struct
 import threading
-import time
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -593,9 +592,6 @@ class ResponseRing:
 
 class LockRing:
     """Baseline: a ring whose producers hold a lock across the whole insert.
-
-    ``lock_held_s`` accumulates time inside the critical section — the
-    serialization a real multi-core host pays (hidden by the GIL here).
     """
 
     def __init__(self, capacity: int = 1 << 16, name: str = "lock-ring"):
@@ -605,16 +601,13 @@ class LockRing:
         self.host = Region(f"host:{name}", POINTER_AREA + capacity)
         self._lock = threading.Lock()
         self._data0 = POINTER_AREA
-        self.lock_held_s = 0.0
 
     def try_insert(self, msg: bytes) -> str:
         n = len(msg)
         with self._lock:  # pointer update AND memcpy under the lock
-            t0 = time.perf_counter()
             tail = self.host.load_u64(OFF_TAIL)
             head = self.host.load_u64(OFF_HEAD)
             if tail - head + n > self.capacity:
-                self.lock_held_s += time.perf_counter() - t0
                 return RETRY
             cap = self.capacity
             pos = tail % cap
@@ -623,7 +616,6 @@ class LockRing:
             if first < n:
                 self.host.write(self._data0, msg[first:])
             self.host.store_u64(OFF_TAIL, tail + n)
-            self.lock_held_s += time.perf_counter() - t0
         return OK
 
     def consume(self, dma: DMAEngine) -> bytes | None:

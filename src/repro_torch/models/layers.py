@@ -33,6 +33,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (constrain_kv_layout, embed_rows,
                                               gather_fsdp, index_copy_,
@@ -334,8 +335,10 @@ def attention_fwd(params, x, cfg: AttnConfig, positions=None):
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     q, k, v = _qkv(params, x, cfg, positions)
-    out = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window,
-                          q_offset=0, block_q=cfg.block_q, block_k=cfg.block_k)
+    with obs.span("attend"):
+        out = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window,
+                              q_offset=0, block_q=cfg.block_q,
+                              block_k=cfg.block_k)
     out = merge_heads(out, B, S, cfg.num_heads * cfg.head_dim)
     return out @ gather_fsdp(params["wo"], tp_dim=0), (k, v)
 
@@ -370,7 +373,8 @@ def attention_decode(params, x, cfg: AttnConfig, k_cache, v_cache,
     index_copy_(k_cache, 1, slot, k_new.to(k_cache.dtype))
     index_copy_(v_cache, 1, slot, v_new.to(v_cache.dtype))
     valid = torch.clamp(kv_len + 1, max=S_cache)
-    out = _decode_attend(q, k_cache, v_cache, valid, cfg)
+    with obs.span("attend"):
+        out = _decode_attend(q, k_cache, v_cache, valid, cfg)
     out = merge_heads(out, B, 1, cfg.num_heads * cfg.head_dim)
     return out @ params["wo"], k_cache, v_cache
 

@@ -41,6 +41,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (along, constrain_batch,
@@ -312,9 +313,10 @@ def lm_decode_step(params, cfg: ModelConfig, cache: dict, kv_len, token):
     x = L.embed_fwd(params["embedding"], token)
     pos = _positions(cfg, B, 1, token.device, offset=kv_len)
     for blk, kind, i, window, theta in _layers(params, cfg):
-        x, _, _ = block_decode(blk, x, cfg, cache[f"{kind}k"][i],
-                               cache[f"{kind}v"][i], kv_len, pos,
-                               window=window, theta=theta)
+        with obs.span("layer"):
+            x, _, _ = block_decode(blk, x, cfg, cache[f"{kind}k"][i],
+                                   cache[f"{kind}v"][i], kv_len, pos,
+                                   window=window, theta=theta)
     return _final(params, cfg, x)[:, 0], cache
 
 
@@ -337,8 +339,9 @@ def lm_prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None,
     cache = on_mesh_of(lm_init_cache(cfg, B, cache_len, dtype=x.dtype,
                                      device=x.device), x)
     for blk, kind, i, window, theta in _layers(params, cfg):
-        x, kv, _ = block_fwd(blk, x, cfg, pos, window=window, theta=theta)
-        for name, a in zip("kv", kv):
+        with obs.span("layer"):
+            x, kv, _ = block_fwd(blk, x, cfg, pos, window=window, theta=theta)
+        for name, a in zip("kv", kv):       # outside the layer's span
             dst = cache[f"{kind}{name}"][i]
             W = dst.shape[1]
             if window is None or S <= W:
@@ -411,15 +414,17 @@ def lm_decode_step_paged(params, cfg: ModelConfig, cache: dict, kv_len,
     slot_off = torch.remainder(kv_len, page).long().expand(B)
     seq_lens = (kv_len + 1).expand(B).contiguous()    # (B,) int32
     for i, blk in enumerate(L.layer_views(params["blocks"], cfg.num_layers)):
-        k_pool, v_pool = cache["k_pool"][i], cache["v_pool"][i]
-        h = _norm1(blk, cfg, x)
-        q, k_new, v_new = L._qkv(blk["attn"], h, acfg, pos)
-        # Write the new token's K/V into its page (translate-then-write).
-        k_pool.index_put_((phys, slot_off), k_new[:, 0].to(k_pool.dtype))
-        v_pool.index_put_((phys, slot_off), v_new[:, 0].to(v_pool.dtype))
-        o = paged_attention(q[:, 0].contiguous(), k_pool, v_pool, table,
-                            seq_lens)
-        o = o.reshape(B, 1, cfg.num_heads * cfg.hd)
-        x = x + o @ blk["attn"]["wo"]
-        x = x + _mix(blk, cfg, _norm2(blk, cfg, x))[0]
+        with obs.span("layer"):
+            k_pool, v_pool = cache["k_pool"][i], cache["v_pool"][i]
+            h = _norm1(blk, cfg, x)
+            q, k_new, v_new = L._qkv(blk["attn"], h, acfg, pos)
+            # Write the new token's K/V into its page (translate-then-write).
+            k_pool.index_put_((phys, slot_off), k_new[:, 0].to(k_pool.dtype))
+            v_pool.index_put_((phys, slot_off), v_new[:, 0].to(v_pool.dtype))
+            with obs.span("attend"):
+                o = paged_attention(q[:, 0].contiguous(), k_pool, v_pool,
+                                    table, seq_lens)
+            o = o.reshape(B, 1, cfg.num_heads * cfg.hd)
+            x = x + o @ blk["attn"]["wo"]
+            x = x + _mix(blk, cfg, _norm2(blk, cfg, x))[0]
     return _final(params, cfg, x)[:, 0], cache

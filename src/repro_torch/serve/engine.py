@@ -30,6 +30,7 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch import obs
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.dds_server import DDSClient, encode_batch
 from repro_torch.distributed import sharding as sh
@@ -293,6 +294,8 @@ class DecodeGraph:
     a replay reads and writes the captured addresses only.  Kernel wrappers
     count the launches of the warm-up and of the capture, never a
     replay's.  Needs a CUDA device; on the CPU call the step itself.
+    The capture's node range of each of the program's spans goes to
+    ``obs.maps``.
 
     It also takes the sharded step, ``make_serve_fns(...)[1](cache)``, on
     DTensors: give it params, cache and tokens already placed by that
@@ -347,7 +350,7 @@ class DecodeGraph:
         torch.cuda.current_stream(self.device).wait_stream(side)
         del scratch
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph), obs.capture():
             self.logits = write_back(self.step, self.params, self.cache,
                                      self._kv_len, self._token)
         self.graph = graph

@@ -28,6 +28,16 @@ COPIED = ([f"core/{m}.py" for m in (
     + [f"apps/{m}.py" for m in ("__init__", "kv_store")]
     + [f"core/{m}.py" for m in ("faultnet", "simulate")]
     + sorted(f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob("*.py")))
+# What a copy leaves out of its original, each piece once, in this order:
+# the port's LockRing keeps no timer of its lock, which nothing read.
+LEFT_OUT = {"core/ring.py": [
+    "import time\n",
+    "\n    ``lock_held_s`` accumulates time inside the critical section — the\n"
+    "    serialization a real multi-core host pays (hidden by the GIL here).\n",
+    "        self.lock_held_s = 0.0\n",
+    "            t0 = time.perf_counter()\n",
+    "                self.lock_held_s += time.perf_counter() - t0\n",
+    "            self.lock_held_s += time.perf_counter() - t0\n"]}
 
 
 def _port_modules() -> list[str]:
@@ -62,8 +72,11 @@ def test_no_file_imports_jax_or_repro():
 
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_substrate_equals_original(rel):
-    orig = (SRC / "repro" / rel).read_text()
-    assert (PORT / rel).read_text() == re.sub(r"\brepro\.", "repro_torch.", orig)
+    orig = re.sub(r"\brepro\.", "repro_torch.", (SRC / "repro" / rel).read_text())
+    for piece in LEFT_OUT.get(rel, []):
+        assert orig.count(piece) == 1, piece
+        orig = orig.replace(piece, "")
+    assert (PORT / rel).read_text() == orig
 
 
 def test_entry_points_refuse_the_cpu_unless_asked():
