@@ -6,7 +6,7 @@
 Phases, each of which exits non-zero on failure:
   1. setup: the card's name and power limit, torch and CUDA versions, TF32
      off for matmuls and cuDNN;
-  2. build the ten CUDA libraries from src/repro_torch/csrc (one nvcc
+  2. build the eleven CUDA libraries from src/repro_torch/csrc (one nvcc
      each, all started together) into build/torch_kernels/, count the
      tensor-core instructions in the SASS of the bf16 flash library (HGMMA,
      also in its D 320 instance alone), of the tensor-core flash backward's
@@ -28,7 +28,13 @@ Phases, each of which exits non-zero on failure:
      shapes the tensor-core gla_scan does not take on CUDA cores); paged
      on its cluster-split route at the decode shape and at a long context
      (up to 32768 positions), beside the CUDA-core kernel it replaced; the
-     host time of one wrapper call of each kernel at its main-path shape;
+     dense decode attention kernel against its plain body at the benchmark
+     cells' shapes (StarCoder2-7B's B 32 over a cache of 3904, Qwen2.5-14B's
+     B 4 over 4128) and a window ring, bf16 and fp32, at valid 1, 17, one
+     short of the cache and the full cache, one CUDA graph a shape replayed
+     at two lengths bit-equal to eager calls, and beside SDPA over the live
+     positions; the host time of one wrapper call of each kernel at its
+     main-path shape;
      flash also at SeamlessM4T's four uses (encoder, decoder
      self-attention, cross-attention at prefill and at decode, Sq 1) and at
      gemma3_4b's (D 320, with its window of 1024 and without, bf16 and
@@ -68,7 +74,8 @@ Phases, each of which exits non-zero on failure:
      way;
   4. the TinyLlama path: full-width TinyLlama (random weights from the
      seed) -- prefill of 8 x 512 tokens through the bf16 flash kernel, dense
-     decode, then paged decode through the paged kernel (every launch on
+     decode (every step's attention through the dense decode kernel, counted
+     eager and at the graph's capture), then paged decode through the paged kernel (every launch on
      the split route) from a pool laid out under a shuffled block table,
      held against the dense decode; then both decode steps captured in CUDA
      graphs (serve.engine.DecodeGraph) and replayed over the same steps from
@@ -236,6 +243,7 @@ PORT_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_kernel",
                 "flash_bwd_wgmma_dkdv_split_kernel", "flash_bwd_wgmma_dq_kernel",
                 "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
                 "paged_attention_split_kernel", "paged_attention_kernel",
+                "decode_attention_split_kernel",
                 "gla_scan_mma_kernel", "gla_scan_kernel", "gla_bwd_mma_states_kernel",
                 "gla_bwd_mma_kernel", "gla_bwd_scan_kernel", "gla_bwd_dqk_kernel",
                 "gla_bwd_dv_kernel")
@@ -246,8 +254,14 @@ TOL_BF16 = 2e-2                 # kernel vs plain version, bf16 in and out
 # there a typical output is about sqrt(e / context) ~ 0.009, so 2e-2 would
 # pass a kernel that dropped a cluster rank's pages (about 0.003 typical,
 # 0.013 at most).  An H100 measured 1.2e-4 (one bf16 rounding of the
-# output); this sits between that and the typical output.
+# output); this sits between that and the typical output.  The dense
+# decode kernel takes it from ``LONG_DECODE`` live positions on: at 3903-
+# 4128 (randn q/k/v, D 128) the output is about 0.02, a kernel that skipped
+# or read twice one 16-position unit errs by 0.011 or more, and an H100
+# measured 4.9e-4; on a ring of 1000 the output is about 0.035 and such a
+# kernel errs by 0.037 or more.
 TOL_PAGED_LONG = 2e-3
+LONG_DECODE = 1000
 # fp32: the reduced models on the card vs the CPU path, and flash's fp32
 # route vs its plain version
 TOL_FP32 = 1e-4
@@ -317,10 +331,11 @@ GLA_SIMT_BEFORE_MS = 1.2745
 # (zamba2_1p2b) over two draws of seed-0 weights; these allow 3.5 times
 # that, as TOL_PAGED_LOGITS does.
 # seamless_m4t_medium (12 + 12 layers, 64-token prompt over 512 frames):
-# the decode step's self-attention is plain torch over the cache where the
-# prefill's is the flash kernel, its cross-attention the kernel at Sq 1
-# where the prefill's is at Sq 64 + n, and its matmuls have 8 rows.  An
-# H100 measured at most 0.0469 over seeds 0-3 (scripts/seamless_cont_gate.py;
+# the decode step's self-attention is the dense decode kernel over the
+# cache (plain torch before it) where the prefill's is the flash kernel,
+# its cross-attention the kernel at Sq 1 where the prefill's is at Sq
+# 64 + n, and its matmuls have 8 rows.  An H100 measured at most 0.0469
+# over seeds 0-3, plain torch in the decode step (scripts/seamless_cont_gate.py;
 # mean |logit| 0.80), and at least 1.0449 with every sequence's cross K/V
 # rolled to its neighbour's (the planted fault of phase 11); this allows
 # 3.5 times the first.
@@ -372,6 +387,15 @@ FLASH_DENSE = [(8, 512, 512, 40, 8, 128, "qwen2p5_14b prefill"),
                (8, 512, 512, 36, 4, 128, "starcoder2_7b prefill")]
 PAGED_DENSE = [("qwen2p5_14b decode", 40, 8, 128),
                ("starcoder2_7b decode", 36, 4, 128)]
+# label, B, S_cache, Hq, Hkv, D, timed length: the dense decode attention at
+# the benchmark cells' shapes (portbench/workloads: starcoder2_7b.repo_decode
+# B 32 over a cache of 3904, prompts of 3072-3840 and 64 out, timed at their
+# mean live length; qwen2p5_14b.doc_prefill B 4 over 4128, prompts of
+# 2048-4096 and 32 out), then a window ring of 1000 slots (not a multiple of
+# 16) at the second's heads.  They draw from a generator of their own.
+DECODE_DENSE = [("starcoder2_7b repo_decode", 32, 3904, 36, 4, 128, 3490),
+                ("qwen2p5_14b doc_prefill", 4, 4128, 40, 8, 128, 3100),
+                ("window ring", 4, 1000, 40, 8, 128, 1000)]
 # seamless_m4t_medium, phase 11: frames, decoder prompt and decode steps.
 SEAMLESS = dict(B=8, S_enc=512, S=64, steps=8)
 # B, Sq, Sk, Hq, Hkv, D, causal, use: the flash calls of SeamlessM4T at
@@ -968,6 +992,84 @@ def check_paged(gen, timer, seed) -> dict:
     by_label = {r["case"][0]: r for r in rows}
     return {"main": rows[0], "qwen2_vl_72b": rows[3],
             **{label.split()[0]: by_label[label] for label, *_ in PAGED_DENSE}}
+
+
+def check_decode(timer, seed) -> dict:
+    """The dense decode attention kernel against its plain body at
+    ``DECODE_DENSE``'s shapes, bf16 and fp32, at valid 1, 17, one short of
+    the cache and the full cache (each launch on the split route); one CUDA
+    graph a shape captured at the full cache and replayed at 17 and one
+    short of it, bit-equal to eager calls; in bf16 at the timed length the
+    kernel's, the plain body's and SDPA's times (SDPA over the live
+    positions laid out (B, H, n, D): the yardstick; the port never calls
+    it), the bound, and the dispatcher's host time a call."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for label, B, S, Hq, Hkv, D, n_time in DECODE_DENSE:
+        base = [torch.randn(*shape, generator=g, device="cuda")
+                for shape in ((B, 1, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+        worst = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (t.to(dtype) for t in base)
+            errs = []
+            for n in sorted({1, 17, S - 1, S}):
+                tol = (TOL_FP32 if dtype == torch.float32 else
+                       TOL_PAGED_LONG if n >= LONG_DECODE else TOL_BF16)
+                valid = torch.tensor(n, dtype=torch.int32, device="cuda")
+                before = decode_attention_cuda.launches_by_route["split"]
+                out = decode_attention(q, k, v, valid)
+                torch.cuda.synchronize()
+                routed = decode_attention_cuda.launches_by_route["split"] - before
+                errs.append(max_err(out, decode_attention_ref(q, k, v, valid)))
+                if routed != 1 or not torch.isfinite(out.float()).all() or errs[-1] > tol:
+                    raise SystemExit(f"decode attention {label} {dtype} valid {n}: "
+                                     f"max|err| {errs[-1]:.3e} (tol {tol}), "
+                                     f"{routed} split launches")
+            worst[dtype] = max(errs)
+            valid = torch.tensor(S, dtype=torch.int32, device="cuda")
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = decode_attention(q, k, v, valid)
+            for n in (17, S - 1):
+                valid.fill_(n)
+                graph.replay()
+                want = decode_attention(q, k, v, torch.tensor(n, dtype=torch.int32,
+                                                              device="cuda"))
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    raise SystemExit(f"decode attention {label} {dtype}: a replay "
+                                     f"at valid {n} differs from the eager call")
+            del graph
+        q, k, v = (t.bfloat16() for t in base)
+        n = n_time
+        valid = torch.tensor(n, dtype=torch.int32, device="cuda")
+        nbytes = 2 * B * n * Hkv * D * 2 + 2 * 2 * q.numel() + 4
+        bnd, by = bound_ms(nbytes, 4 * B * Hq * D * n)
+        qs, ks, vs = (t[:, :n].transpose(1, 2).contiguous() for t in (q, k, v))
+        row = dict(case=(label, B, S, Hq, Hkv, D, n), route=["split"],
+                   err=worst[torch.bfloat16],
+                   ms=timer.ms(lambda: decode_attention(q, k, v, valid)),
+                   plain_ms=timer.ms(lambda: decode_attention_ref(q, k, v, valid),
+                                     iters=5),
+                   library_ms=timer.ms(lambda: sdpa(qs, ks, vs, enable_gqa=True)),
+                   bound_ms=bnd, bound_by=by)
+        host = host_us(lambda: decode_attention(q, k, v, valid))
+        log(f"decode attention {label}: B {B} S_cache {S} Hq {Hq} Hkv {Hkv} D {D}, "
+            f"valid 1/17/{S - 1}/{S}: max|err| bf16 {worst[torch.bfloat16]:.3e} "
+            f"(tol {TOL_BF16}, {TOL_PAGED_LONG} from {LONG_DECODE} positions), "
+            f"fp32 {worst[torch.float32]:.3e} (tol {TOL_FP32}), "
+            f"every launch on split; a graph captured at {S} replayed at 17 and "
+            f"{S - 1} bit-equal to eager, both dtypes; at valid {n} (bf16) kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, SDPA over the "
+            f"live positions {row['library_ms']:.4f} ms, bound {bnd:.4f} ms ({by}, "
+            f"{nbytes / 1e6:.1f} MB); dispatcher host time {host:.2f} us a call")
+        rows[label.split()[0]] = row
+    return rows
 
 
 def gla_work(q, v, w, chunk: int) -> tuple[int, int]:
@@ -1624,6 +1726,8 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
     the weights read once by default).  Returns the launch counts, the
     paged cache after the eager steps, the tokens and the eager dense
     logits."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda as decode_cuda)
     from repro_torch.models import transformer as TF
     from repro_torch.serve.engine import DecodeGraph, tree_clone
 
@@ -1634,8 +1738,10 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
     with torch.inference_mode():
         prefill_lg, cache, prefill_s, prefill_counts = timed_prefill(
             api, params, tokens, S, cache_len,
-            {"flash_attention": flash_cuda, "paged_attention": paged_cuda},
-            {"flash_attention": cfg.num_layers, "paged_attention": 0}, extra)
+            {"flash_attention": flash_cuda, "paged_attention": paged_cuda,
+             "decode_attention": decode_cuda},
+            {"flash_attention": cfg.num_layers, "paged_attention": 0,
+             "decode_attention": 0}, extra)
         paged = TF.lm_init_paged_cache(cfg, B, cache_len, page=page,
                                        device=dev)
         perm = torch.randperm(B * cache_len // page, generator=gen, device=dev)
@@ -1657,10 +1763,14 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
             paged_logits.append(lg.float())
         sync(dev)
         paged_s = (time.perf_counter() - t0) / steps
+    # every dense step's attention on the dense kernel (the card's models
+    # all have head dims of 64 or 128 and at most 9 query heads a kv head)
     counts = {"flash_attention": flash_cuda.launches,
-              "paged_attention": paged_cuda.launches}
+              "paged_attention": paged_cuda.launches,
+              "decode_attention": decode_cuda.launches}
     if counts != {"flash_attention": cfg.num_layers,
-                  "paged_attention": cfg.num_layers * steps}:
+                  "paged_attention": cfg.num_layers * steps,
+                  "decode_attention": cfg.num_layers * steps * (dev.type == "cuda")}:
         raise SystemExit(f"main path launches {counts}")
     paged_routes = dict(paged_cuda.launches_by_route)
     if paged_routes != {r: counts["paged_attention"] * (r == "split")
@@ -1698,10 +1808,12 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
     def paged_step(p_, c_, n_, t_):
         return TF.lm_decode_step_paged(p_, cfg, c_, n_, t_)
 
+    dense0 = decode_cuda.launches
     with torch.inference_mode():
-        g_dense, cache_g, dense_g_ms, dense_first, _ = graph_decode(
+        g_dense, cache_g, dense_g_ms, dense_first, dense_captured = graph_decode(
             "dense decode graph", api.decode_step, params, cache0, tokens, S,
             dense_logits)
+        dense_graph = decode_cuda.launches - dense0
         g_paged, paged_g, paged_g_ms, paged_first, captured = graph_decode(
             "paged decode graph", paged_step, params, paged0, tokens, S,
             paged_logits)
@@ -1711,6 +1823,15 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
         raise SystemExit(f"paged decode graph: first call launched paged "
                          f"{captured}, want {want} on split; flash "
                          f"{flash_cuda.launches - flash0}, want 0")
+    # the dense graph's first call: warm-up and capture, replays none (more
+    # would show here); the paged graph and every paged launch none
+    if (dense_graph != want * (dev.type == "cuda")
+            or decode_cuda.launches != dense0 + dense_graph
+            or any(dense_captured.values())):
+        raise SystemExit(f"dense decode graph: decode attention launches "
+                         f"{dense_graph} at its first call (want {want}), "
+                         f"{decode_cuda.launches - dense0 - dense_graph} in the "
+                         f"paged graph (want 0), paged {dense_captured} (want none)")
     log(f"decode graphs {cfg.name} B {B}, {steps} steps from position {S}: "
         f"dense eager {dense_s * 1e3:.3f} ms/step, graph {dense_g_ms:.3f} "
         f"ms/step (first call {dense_first * 1e3:.1f} ms: {DecodeGraph.WARMUP} "
@@ -1719,7 +1840,9 @@ def main_path(api, params, gen, flash_cuda, paged_cuda, B=8, S=512,
         f"call {paged_first * 1e3:.1f} ms); replayed logits equal to the eager "
         f"ones bit for bit, twice over; paged launches counted at the first "
         f"call {captured} ({cfg.num_layers} captured, the rest warm-up), none "
-        "on replays")
+        f"on replays; dense decode attention launches at the dense graph's "
+        f"first call {dense_graph} on split ({cfg.num_layers} captured, the "
+        "rest warm-up), none on replays or in the paged graph")
     if dev.type == "cuda":
         bound = step_bound or (weights_ms(params), "weights read once")
         with torch.inference_mode():
@@ -3540,6 +3663,7 @@ def main() -> int:
     report = _build.build(["flash_attention", "flash_attention_wgmma",
                            "flash_attention_bwd", "flash_attention_bwd_wgmma",
                            "paged_attention", "paged_attention_split",
+                           "decode_attention_split",
                            "gla_scan", "gla_scan_mma", "gla_scan_bwd",
                            "gla_scan_bwd_mma"])
     log(f"build: {time.perf_counter() - t0:.1f} s wall into {_build.BUILD_DIR} "
@@ -3576,6 +3700,7 @@ def main() -> int:
     timer = Timer()
     flash = check_flash(gen, timer, args.seed)
     paged_row = check_paged(gen, timer, args.seed)
+    decode_rows = check_decode(timer, args.seed)
     gla_row = check_gla(gen, timer)
     flash_bwd = check_flash_bwd(timer, args.seed)
     gla_bwd = check_gla_bwd(timer, args.seed)
@@ -3846,14 +3971,18 @@ def main() -> int:
              train16["gemma3_4b"]["launches"]["wgmma"], "flash_attention_bwd_wgmma",
              "src/repro/kernels/flash_attention/kernel.py:96"),
             # the forward kernels at G 5 and G 9 (D 128), with phases 19-20's
-            # launches
+            # launches; the dense decode attention (no TPU kernel: the plain
+            # jnp body) at the benchmark cells' shapes, with the launches of
+            # phases 19-20's eager dense steps
             *((f"{kernel}@{arch}", row[arch], dense_counts[arch][kernel], source, line)
               for arch in DENSE_ARCHS
               for kernel, row, source, line in (
                   ("flash_attention", flash, "flash_attention_wgmma",
                    "src/repro/kernels/flash_attention/kernel.py:96"),
                   ("paged_attention", paged_row, "paged_attention_split",
-                   "src/repro/kernels/paged_attention/kernel.py:84")))):
+                   "src/repro/kernels/paged_attention/kernel.py:84"),
+                  ("decode_attention", decode_rows, "decode_attention_split",
+                   "none: src/repro/models/layers.py::_decode_attend")))):
         entries.append({
             "name": kname, "route": "cuda", "case": str(row["case"]),
             "kernel_route": row["route"][0],

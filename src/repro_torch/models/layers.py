@@ -6,9 +6,9 @@ the JAX layouts (weights ``(in, out)``, applied as ``x @ W``), so a JAX tree
 converted by ``repro_torch.interop`` drops in unchanged.  Each init also
 records the parallel axes tree of logical axis names; the sharding layer
 (``repro_torch.distributed.sharding``) maps them to mesh axes.  The
-weights go through its hooks (``gather_fsdp``, ``constrain_kv_layout``)
-at the reference's call sites; outside a sharded scope they are
-identities.
+weights go through its hooks (``gather_fsdp`` here, ``constrain_kv_layout``
+in the plain decode attention, ``kernels/decode_attention/ref.py``) at the
+reference's call sites; outside a sharded scope they are identities.
 
 Logical axis vocabulary:
   "vocab"   embedding rows
@@ -35,10 +35,10 @@ from torch.utils.checkpoint import (CheckpointPolicy,
 
 from repro_torch import obs
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import (constrain_kv_layout, embed_rows,
-                                              gather_fsdp, index_copy_,
-                                              merge_heads, split_heads,
-                                              splittable)
+from repro_torch.distributed.sharding import (embed_rows, gather_fsdp,
+                                              index_copy_, merge_heads,
+                                              split_heads)
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 
 # ---------------------------------------------------------------------------
@@ -363,7 +363,9 @@ def attention_decode(params, x, cfg: AttnConfig, k_cache, v_cache,
     sliding-window layers the cache is a ring of size ``window`` (attention
     is permutation-invariant, so ring order does not matter).  The new K/V
     row is written into the caches in place; returns (out, k_cache,
-    v_cache).
+    v_cache).  The attention goes through the dense decode dispatcher: the
+    CUDA kernel for the calls its route takes, the plain version (the JAX
+    package's body) for the rest.
     """
     B = x.shape[0]
     q, k_new, v_new = _qkv(params, x, cfg, positions)
@@ -374,30 +376,9 @@ def attention_decode(params, x, cfg: AttnConfig, k_cache, v_cache,
     index_copy_(v_cache, 1, slot, v_new.to(v_cache.dtype))
     valid = torch.clamp(kv_len + 1, max=S_cache)
     with obs.span("attend"):
-        out = _decode_attend(q, k_cache, v_cache, valid, cfg)
+        out = decode_attention(q, k_cache, v_cache, valid)
     out = merge_heads(out, B, 1, cfg.num_heads * cfg.head_dim)
     return out @ params["wo"], k_cache, v_cache
-
-
-def _decode_attend(q, k_cache, v_cache, valid_len, cfg: AttnConfig):
-    """Masked non-causal attention of one query over the cache (fp32 softmax).
-
-    Plain torch, as in the JAX package: no kernel backs the dense decode.
-    """
-    B, _, H, hd = q.shape
-    KV = k_cache.shape[2]
-    G = H // KV
-    qf = q.float() * (hd ** -0.5)                         # (B,1,H,hd)
-    kf = constrain_kv_layout(k_cache.float())
-    vf = constrain_kv_layout(v_cache.float())
-    qg = splittable(qf, 2, KV).reshape(B, KV, G, hd)
-    s = torch.einsum("bkgd,bskd->bkgs", qg, kf)           # (B,KV,G,S)
-    kpos = torch.arange(k_cache.shape[1], device=q.device)
-    mask = kpos[None, None, None, :] < valid_len
-    s = torch.where(mask, s, torch.full_like(s, -1e30))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", p, vf)
-    return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

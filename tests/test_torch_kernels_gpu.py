@@ -4,7 +4,10 @@ so they run on the card's machine:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py -q
 
-Inputs and tolerances are those of ``test_torch_kernels.py`` and
+The dense decode attention kernel is held to its plain body
+(``decode_attention_ref``) at the same attention tolerances, and in bf16
+from 1000 live positions on at 2e-3, where its outputs are small.  Inputs and
+tolerances are those of ``test_torch_kernels.py`` and
 ``test_torch_ssm_scan.py`` (``_torch_cases.py``): 2e-5 for fp32 and 2e-2
 for bf16 on attention; four times that on the GLA scan's output and 1e-3
 on its final state, as the JAX package's GLA tests.  The flash backward's
@@ -24,6 +27,9 @@ from _torch_cases import (FA_BWD_CASES, FA_CASES, FA_GEMMA_CASES, FA_MOE_CASES,
                           PA_CASES, PA_SPLIT_CASES, TOL, fa_bwd_inputs, fa_inputs,
                           gla_exact_bound_inputs, gla_inputs, gla_mma_inputs,
                           pa_inputs, pa_split_inputs)
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.kernel import (bwd_route,
                                                         flash_attention_bwd_cuda,
@@ -400,6 +406,140 @@ def test_paged_attention_cuda_split_zero_length_gives_zeros(dtype,
     ref = paged_attention_ref(q[keep], kp, vp, bt[keep], sl[keep])
     np.testing.assert_allclose(_np(out[keep]), _np(ref), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# Dense decode attention: the split kernel against the plain body (the
+# attention tolerances above).
+# ---------------------------------------------------------------------------
+
+# B, S_cache, Hkv, G, D, valid lengths: lengths on both sides of a unit
+# (16) and of the cluster's split (C = 8 units), one short of the cache and
+# the full cache; caches that are not a multiple of 16 and a window ring
+# shorter than a unit; the benchmark cells' shapes (StarCoder2-7B's B 32,
+# cache 3904, 36/4 heads of 128; Qwen2.5-14B's B 4, cache 4128, 40/8).
+DA_CASES = [
+    (3, 100, 2, 3, 64, (1, 15, 16, 17, 33, 99, 100)),
+    (2, 300, 4, 8, 64, (1, 129, 299, 300)),
+    (2, 4, 2, 4, 128, (1, 3, 4)),
+    (2, 200, 1, 1, 64, (17, 200)),
+    (4, 4128, 8, 5, 128, (1, 17, 4127, 4128)),
+    (32, 3904, 4, 9, 128, (1, 17, 3903, 3904)),
+]
+
+
+def _da_inputs(case, dtype, device, seed=3):
+    B, S, Hkv, G, D, _ = case
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn(*shape, generator=g).to(device, DTYPES[dtype])
+               for shape in ((B, 1, Hkv * G, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    return q, k, v
+
+
+# bf16 from 1000 live positions on: a typical output is about 0.02 at
+# 3903-4128 (randn q/k/v, D 128), so TOL's 2e-2 would pass a kernel that
+# skipped or read twice one 16-position unit (0.011 or more); an H100
+# measured 4.9e-4.  chip_smoke.py's TOL_PAGED_LONG and LONG_DECODE.
+DA_TOL_LONG, DA_LONG = 2e-3, 1000
+
+
+def _da_tol(dtype, n):
+    return DA_TOL_LONG if dtype == "bfloat16" and n >= DA_LONG else TOL[dtype]
+
+
+def _da_routed(q, k, v, valid):
+    """The dispatcher, with one launch counted on the split route."""
+    before = decode_attention_cuda.launches_by_route["split"]
+    out = decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches_by_route["split"] == before + 1
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DA_CASES, ids=lambda c: "x".join(map(str, c[:5])))
+def test_decode_attention_cuda_matches_plain(case, dtype, cuda_device):
+    q, k, v = _da_inputs(case, dtype, cuda_device)
+    for n in case[5]:
+        valid = torch.tensor(n, dtype=torch.int32, device=cuda_device)
+        out = _da_routed(q, k, v, valid)
+        ref = decode_attention_ref(q, k, v, valid)
+        assert out.dtype == q.dtype and out.shape == q.shape
+        tol = _da_tol(dtype, n)
+        np.testing.assert_allclose(_np(out), _np(ref), atol=tol, rtol=tol,
+                                   err_msg=f"valid {n}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_cuda_never_reads_past_valid(dtype, cuda_device):
+    """Positions at or past valid filled with NaN give the bits of the clean
+    cache: they are never read."""
+    case = DA_CASES[1]
+    q, k, v = _da_inputs(case, dtype, cuda_device)
+    for n in (1, 17, 129, 299):
+        valid = torch.tensor(n, dtype=torch.int32, device=cuda_device)
+        clean = _da_routed(q, k, v, valid)
+        kp, vp = k.clone(), v.clone()
+        kp[:, n:] = float("nan")
+        vp[:, n:] = float("nan")
+        assert torch.equal(_da_routed(q, kp, vp, valid), clean)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_cuda_zero_valid_gives_zeros(dtype, cuda_device):
+    """valid == 0: zeros, as the paged kernel at seq_len 0 (the plain body
+    gives the mean of V; the models never call it so)."""
+    q, k, v = _da_inputs(DA_CASES[0], dtype, cuda_device)
+    B, _, H, D = q.shape
+    out = decode_attention_cuda(q.view(B, H, D), k, v,
+                                torch.zeros((), dtype=torch.int32, device=cuda_device))
+    assert torch.count_nonzero(out).item() == 0
+
+
+@pytest.mark.gpu
+def test_decode_attention_dispatcher_keeps_the_plain_body_for_other_calls(
+        cuda_device):
+    """D 320 (gemma3_4b), G 10 and a misaligned q go to the plain body: no
+    launch."""
+    valid = torch.tensor(7, dtype=torch.int32, device=cuda_device)
+    calls = [_da_inputs((2, 32, 2, 2, 320, ()), "bfloat16", cuda_device),
+             _da_inputs((2, 32, 1, 10, 64, ()), "bfloat16", cuda_device)]
+    q, k, v = _da_inputs((2, 32, 2, 4, 64, ()), "bfloat16", cuda_device)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    calls.append((shifted, k, v))
+    before = decode_attention_cuda.launches
+    for args in calls:
+        out = decode_attention(*args, valid)
+        assert torch.equal(out, decode_attention_ref(*args, valid))
+    assert decode_attention_cuda.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_cuda_replays_at_other_lengths(dtype, cuda_device):
+    """One capture in a CUDA graph, replayed with valid set to two lengths
+    on the device: each replay equals an eager call at that length, bit for
+    bit, and replays count no launch."""
+    q, k, v = _da_inputs(DA_CASES[1], dtype, cuda_device)
+    valid = torch.tensor(300, dtype=torch.int32, device=cuda_device)
+    _da_routed(q, k, v, valid)                 # the library built and set up
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, k, v, valid)
+    launches = decode_attention_cuda.launches
+    for n in (37, 283):
+        valid.fill_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = decode_attention(q, k, v, torch.tensor(n, dtype=torch.int32,
+                                                      device=cuda_device))
+        assert torch.equal(out, want), n
+    assert decode_attention_cuda.launches == launches + 2     # the eager calls
 
 
 # ---------------------------------------------------------------------------

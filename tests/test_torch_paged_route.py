@@ -141,20 +141,22 @@ def split_emulation(q, kp, vp, bt, sl, C, mma=False, scale=None):
     steps, q scaled before).
 
     This is a hand copy of the kernel's arithmetic and shares no code with
-    it: a change to src/repro_torch/csrc/paged_attention_split.cu is made
-    here too.  Each part follows these lines of that file:
+    it: a change to src/repro_torch/csrc/split_decode.cuh (the body the
+    paged and dense split kernels share) or paged_attention_split.cu is
+    made here too.  Each part follows these lines of those files:
 
-    * the block's pages r, r + C, ... and its row count: :492-500;
+    * the block's pages r, r + C, ... and its row count:
+      split_decode.cuh:111-117, paged_attention_split.cu:78-84;
     * a warp's steps, rows [base, base + rows), base = (s * 4 + w) * rows:
-      :168-172;
-    * fp32: q scaled by scale * log2(e) (:199), the scores, rows past the
-      sequence at -1e30 (:235-261), the rescale when the max grows
-      (:263-279), p = 2^(s - m), l and acc (:281-291);
+      split_decode.cuh:131-135;
+    * fp32: q scaled by scale * log2(e) (:162), the scores, rows past the
+      sequence at -1e30 (:198-224), the rescale when the max grows
+      (:226-242), p = 2^(s - m), l and acc (:243-254);
     * bf16: Q K^T on the tensor cores, then the scale and the mask
-      (:382-399), the rescale (:401-418), p (:420-426), P split hi/lo
-      (:430-433) and P V as hi V + lo V (:435-442);
-    * the warps' combine (:518-537) and the cluster's, out =
-      acc / (l + 1e-30) (:543-564).
+      (:345-364), the rescale (:369-380), p (:382-389), P split hi/lo
+      (:393-396) and P V as hi V + lo V (:398-405);
+    * the warps' combine (:467-488) and the cluster's, out =
+      acc / (l + 1e-30) (:493-514).
     """
     B, Hq, D = q.shape
     P, page, Hkv, _ = kp.shape
